@@ -3,16 +3,32 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``lewton_tpu_torch/csrc/`` with nvcc,
-holds each kernel against its plain torch version on the card at the
-headline shapes (S=256 streams x T=128 packets, flagship stereo 44.1 kHz
-setup) and at an odd T, runs the port's main path (``decode_chunks_scan``,
-N=16 chunks) and checks that both kernels carried it, anchors the card's
-output to the plain path on the CPU, then times the kernels, each stage of
-a chunk and the slice, and profiles one main-path call (device busy share,
-device time per op). Every failed check raises, so the exit code is
-nonzero. The last stdout line is ``{"ok": true, "device": {...}}``; the
-line before it lists the kernels as JSON. Needs torch and numpy only.
+Builds the port's CUDA kernels from ``lewton_tpu_torch/csrc/`` with nvcc
+(one process per source, in parallel) and holds each kernel -- K1 in both
+layouts, K2, K3 -- against its plain torch version on the card, bit for
+bit, at the headline shapes (S=256 streams x T=128 packets, flagship
+stereo 44.1 kHz setup), at an odd T, at the crafted geometries the port
+sends to its kernels and the reference never did, and (K3) at 10 channels.
+Then it drives each path
+of ``decode_chunks_scan`` with the launch counts set to 0 just before and
+read just after, and requires the kernels of that path, and only those, to
+have run once per chunk:
+
+- the i16 main path (N=16 chunks): K1 channel-major, DCT-IV GEMM, K2;
+- the f32 path (N=4): K1 flat, IMDCT GEMM, f32 overlap-add;
+- the generic i16 path for a per-mode-coupling and a floor-0 setup (N=4):
+  generic stages, DCT-IV GEMM, K2;
+- the opt-in K3 path (``USE_FUSED_SYNTH_KERNEL``, N=4): precompute_brackets,
+  K3, DCT-IV GEMM, K2; and at 10 channels (N=2), past K1's gate, where
+  K3's wide form runs on brackets contracted inside the chunk.
+
+Each path's first chunks are anchored to the port's plain path on the CPU.
+It times the kernels against their plain versions, each stage of a main
+path chunk and each path on its kernels and on its plain versions, and
+profiles one call of each path (device busy share, device time per op). Every
+failed check raises, so the exit code is nonzero. The last stdout line is
+``{"ok": true, "device": {...}}``; the line before it lists the kernels as
+JSON. Needs torch and numpy only.
 """
 
 from __future__ import annotations
@@ -27,17 +43,35 @@ import numpy as np
 import torch
 
 from lewton_tpu_torch import _build
+from lewton_tpu_torch.models import decoder
 from lewton_tpu_torch.models.decoder import (compile_setup,
-                                             floor_kernel_inputs, floor_stage)
-from lewton_tpu_torch.ops import floor_kernel, overlap_kernel
+                                             floor_kernel_inputs, floor_stage,
+                                             precompute_brackets,
+                                             synthesize_spectra_tapped)
+from lewton_tpu_torch.ops import floor_kernel, overlap_kernel, synth_kernel
 from lewton_tpu_torch.ops.imdct import dct4_batch_parts_ct, sum_order_bound
 from lewton_tpu_torch.ops.windowing import init_window_carry, overlap_table
 from lewton_tpu_torch.parallel.batch import decode_chunks_scan
-from lewton_tpu_torch.testing import synthetic_frames, synthetic_headers
+from lewton_tpu_torch.testing import (synthetic_floor0_frames,
+                                      synthetic_frames, synthetic_headers)
 
 S, T, N = 256, 128, 16  # headline: streams, packets per chunk, chunks
+N_NEW = 4  # chunks of each further path (an f32 chunk is 403 MB of PCM)
+WIDE_C, N_WIDE = 10, 2  # channels and chunks of the wide K3 path
 ODD_T, ODD_S = 144, 64  # T not a multiple of the kernels' row blocks
 ANCHOR_S, ANCHOR_N = 4, 2  # streams/chunks re-run on the CPU
+#: (n0, n1, C, w_eff) the port sends to its kernels and the reference's
+#: kernel gates never admitted (crafted streams f1_bs64, f1_bs64_8192,
+#: f1_bs8192, a 512-sample setup, and 8 channels)
+GEOMETRIES = ((64, 64, 1, 32), (64, 8192, 1, 512), (8192, 8192, 1, 512),
+              (512, 512, 1, 256), (256, 2048, 8, 896))
+GEO_S, GEO_T = 4, 37
+#: card vs CPU plain path, i16 LSB: floor 1 is exact up to the GEMM's sum
+#: order (1 LSB); floor 0 also goes through exp and sqrt, whose last ulp
+#: differs between CUDA and the CPU library, so it is held to the +/-2 LSB
+#: budget of the conformance contract
+MAX_LSB = {"floor1": 1, "floor0": 2}
+FLOOR0_RTOL = 2.0 ** -16  # floor-0 curve, relative (tests/test_torch_generic.py)
 
 
 def card_line() -> str:
@@ -65,6 +99,14 @@ def to_dev(fr: dict, dev) -> dict:
     return {k: torch.from_numpy(v).to(dev) for k, v in fr.items()}
 
 
+def expand(fr: dict, n: int) -> dict:
+    """Frames [S, T, ...] as n identical chunks [n, S, T, ...] (views)."""
+    def e(v):
+        return v.expand((n,) + tuple(v.shape))
+    return {k: tuple(map(e, v)) if isinstance(v, tuple) else e(v)
+            for k, v in fr.items()}
+
+
 def table_args(cs, fr, plen0, started0) -> tuple:
     """Arguments of ``overlap_table`` for frames [S, T, ...]."""
     return (cs.mode_blockflag[fr["mode"].long()], fr["prev_flag"],
@@ -86,76 +128,227 @@ def stage_operands(cs, fr):
     return k1, spectra, table, k2
 
 
-def check_kernels(cs, dev, rng) -> dict:
-    """Kernel vs plain on the card, bit for bit, at the headline shapes and
-    at an odd T, with random valid prefixes and random carries."""
-    err = {"floor": 0.0, "overlap": 0.0}
+def k3_operands(cs, fr):
+    """K3's operands for frames [S, T, ...]: (brackets [S*T, 4, C, W],
+    residue f32 [S*T, C, W], used [S*T, C], steps)."""
+    rows, C, W = fr["mode"].numel(), cs.channels, cs.w_eff
+    br = precompute_brackets(cs, fr)["f1_brackets"]
+    return (torch.stack(br, 2).reshape(rows, 4, C, W),
+            fr["residue"].reshape(rows, C, W).to(torch.float32),
+            fr["f_used"].reshape(rows, C), cs.static_coupling)
+
+
+def _same_bits(a, b) -> bool:
+    if a.dtype == torch.float32:
+        a, b = a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)
+    return torch.equal(a, b)
+
+
+def check_at(cs, s_, t_, seed, rng, err: dict, what: str) -> None:
+    """K1 (both layouts), K3 and K2 against their plain versions on the
+    card, bit for bit, for frames [s_, t_] with random valid prefixes and a
+    random carry; K1 flat also against K1 channel-major transposed."""
+    dev = cs.device
     W = cs.n1 // 2
-    for s_, t_, seed in ((S, T, 3), (ODD_S, ODD_T, 5)):
-        fr = synthetic_frames(cs, T=t_, S=s_, seed=seed)
-        for s in range(s_):
-            fr["valid"][s, rng.integers(0, t_ + 1):] = False
-        fr = to_dev(fr, dev)
-        k1 = floor_kernel_inputs(cs, fr)
-        got = floor_kernel.floor_spectra(*k1, cs.f1_xs, cs.f1_step,
-                                         cs.static_coupling)
-        want = floor_kernel.floor_spectra_ref(*k1, cs.f1_step,
-                                              cs.static_coupling)
-        torch.cuda.synchronize()
-        d1 = float((got - want).abs().max())
-        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
-            raise AssertionError(f"floor kernel != plain at S={s_} T={t_}: "
-                                 f"max |d| {d1}")
-        x_long, x_short = dct4_batch_parts_ct(want, cs.dct4_m0, cs.dct4_m1)
-        pwr0 = torch.from_numpy(
-            rng.standard_normal((s_, cs.channels, W)).astype("float32")).to(dev)
-        plen0 = torch.from_numpy(
-            rng.choice([0, cs.n0 // 2, W], s_).astype("int32")).to(dev)
-        started0 = torch.from_numpy(rng.integers(0, 2, s_).astype(bool)).to(dev)
-        scal13, slopes, _, _ = overlap_table(
-            *table_args(cs, fr, plen0, started0))
-        k2 = (x_long, x_short, scal13, slopes, pwr0, cs.n0, cs.n1)
-        (o_k, p_k), (o_r, p_r) = (overlap_kernel.overlap_i16(*k2),
-                                  overlap_kernel.overlap_i16_ref(*k2))
-        torch.cuda.synchronize()
-        d2 = max(float((o_k.int() - o_r.int()).abs().max()),
-                 float((p_k - p_r).abs().max()))
-        if not (torch.equal(o_k, o_r)
-                and torch.equal(p_k.view(torch.int32), p_r.view(torch.int32))):
-            raise AssertionError(f"overlap kernel != plain at S={s_} T={t_}: "
-                                 f"max |d| {d2}")
-        err["floor"] = max(err["floor"], d1)
-        err["overlap"] = max(err["overlap"], d2)
-        print(f"kernel vs plain at S={s_} T={t_}: floor max|d| {d1}, "
-              f"overlap max|d| {d2} (bit-identical)")
+    fr = synthetic_frames(cs, T=t_, S=s_, seed=seed)
+    for s in range(s_):
+        fr["valid"][s, rng.integers(0, t_ + 1):] = False
+    fr = to_dev(fr, dev)
+    k1 = floor_kernel_inputs(cs, fr)
+    args, ref_args = (cs.f1_xs, cs.f1_step, cs.static_coupling), \
+        (cs.f1_step, cs.static_coupling)
+    pairs = {
+        "floor": (floor_kernel.floor_spectra(*k1, *args),
+                  floor_kernel.floor_spectra_ref(*k1, *ref_args)),
+        "floor_flat": (floor_kernel.floor_spectra(*k1, *args, ct_out=False),
+                       floor_kernel.floor_spectra_ref(*k1, *ref_args,
+                                                      ct_out=False)),
+    }
+    k3 = k3_operands(cs, fr)
+    pairs["synth"] = (synth_kernel.fused_floor_couple(*k3),
+                      synth_kernel.fused_floor_couple_ref(*k3))
+    want = pairs["floor"][1]
+    x_long, x_short = dct4_batch_parts_ct(want, cs.dct4_m0, cs.dct4_m1)
+    pwr0 = torch.from_numpy(
+        rng.standard_normal((s_, cs.channels, W)).astype("float32")).to(dev)
+    plen0 = torch.from_numpy(
+        rng.choice([0, cs.n0 // 2, W], s_).astype("int32")).to(dev)
+    started0 = torch.from_numpy(rng.integers(0, 2, s_).astype(bool)).to(dev)
+    scal13, slopes, _, _ = overlap_table(*table_args(cs, fr, plen0, started0))
+    k2 = (x_long, x_short, scal13, slopes, pwr0, cs.n0, cs.n1)
+    (o_k, p_k), (o_r, p_r) = (overlap_kernel.overlap_i16(*k2),
+                              overlap_kernel.overlap_i16_ref(*k2))
+    torch.cuda.synchronize()
+    if not _same_bits(pairs["floor_flat"][0], pairs["floor"][0].permute(1, 0, 2)):
+        raise AssertionError(f"K1 flat != K1 channel-major transposed ({what})")
+    line = []
+    for name, (got, ref) in pairs.items():
+        d = float((got - ref).abs().max())
+        if not _same_bits(got, ref):
+            raise AssertionError(f"{name} kernel != plain ({what}): max |d| {d}")
+        err[name] = max(err[name], d)
+        line.append(f"{name} {d}")
+    d2 = max(float((o_k.int() - o_r.int()).abs().max()),
+             float((p_k - p_r).abs().max()))
+    if not (torch.equal(o_k, o_r) and _same_bits(p_k, p_r)):
+        raise AssertionError(f"overlap kernel != plain ({what}): max |d| {d2}")
+    err["overlap"] = max(err["overlap"], d2)
+    print(f"kernel vs plain, {what}: max|d| " + ", ".join(line)
+          + f", overlap {d2} (bit-identical)")
+
+
+def geometry_setup(n0, n1, C, w_eff, dev):
+    """The synthetic setup at blocksizes n0/n1 with C channels, its residue
+    end moved so that w_eff comes out as asked."""
+    ident, setup = synthetic_headers(C, n0.bit_length() - 1,
+                                     n1.bit_length() - 1)
+    setup.residues[0].end = C * w_eff
+    cs = compile_setup(ident, setup, device=dev)
+    if (cs.n0, cs.n1, cs.channels, cs.w_eff) != (n0, n1, C, w_eff):
+        raise AssertionError(f"geometry {(n0, n1, C, w_eff)}: setup gives "
+                             f"{(cs.n0, cs.n1, cs.channels, cs.w_eff)}")
+    return cs
+
+
+def check_kernels(cs, dev, rng) -> dict:
+    """Every kernel vs its plain version on the card: headline shapes, an
+    odd T, the crafted geometries, and K3 at WIDE_C channels."""
+    err = dict.fromkeys(("floor", "floor_flat", "synth", "overlap"), 0.0)
+    check_at(cs, S, T, 3, rng, err, f"S={S} T={T}")
+    check_at(cs, ODD_S, ODD_T, 5, rng, err, f"S={ODD_S} T={ODD_T}")
+    for i, geo in enumerate(GEOMETRIES):
+        check_at(geometry_setup(*geo, dev), GEO_S, GEO_T, 7 + i, rng, err,
+                 "(n0, n1, C, w_eff)=" + str(geo))
+    # K3's wide form: more channels than K1 (and K3's registers) take
+    cs_w = compile_setup(*synthetic_headers(WIDE_C), device=dev)
+    k3 = k3_operands(cs_w, to_dev(synthetic_frames(cs_w, T=GEO_T, S=GEO_S,
+                                                   seed=13), dev))
+    got, ref = (synth_kernel.fused_floor_couple(*k3),
+                synth_kernel.fused_floor_couple_ref(*k3))
+    torch.cuda.synchronize()
+    d = float((got - ref).abs().max())
+    if not _same_bits(got, ref):
+        raise AssertionError(f"synth kernel != plain (C={WIDE_C}): max |d| {d}")
+    err["synth"] = max(err["synth"], d)
+    print(f"kernel vs plain, K3 C={WIDE_C} S={GEO_S} T={GEO_T}: max|d| synth "
+          f"{d} (bit-identical)")
     return err
 
 
-def anchor(cs, ident, setup, fr_np, frs, outs, out_lens) -> None:
+def launches() -> dict:
+    return {"floor": floor_kernel.LAUNCHES,
+            "floor_flat": floor_kernel.LAUNCHES_FLAT,
+            "overlap": overlap_kernel.LAUNCHES,
+            "synth": synth_kernel.LAUNCHES}
+
+
+def no_prep(cs, frs):
+    return frs
+
+
+def run_path(label, cs, frs, carry0, with_i16, expect: dict, prep=no_prep):
+    """Drive one path -- ``prep`` (e.g. ``precompute_brackets``), then
+    ``decode_chunks_scan`` -- with every launch count set to 0 just before
+    and read just after; the counts must equal ``expect`` (kernel ->
+    launches, the others 0)."""
+    torch.cuda.synchronize()
+    floor_kernel.LAUNCHES = floor_kernel.LAUNCHES_FLAT = 0
+    overlap_kernel.LAUNCHES = synth_kernel.LAUNCHES = 0
+    (outs, lens), carry = decode_chunks_scan(cs, prep(cs, frs), carry0,
+                                             with_i16=with_i16)
+    got = launches()
+    torch.cuda.synchronize()
+    want = dict.fromkeys(got, 0) | expect
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+    n_ = frs["mode"].shape[0]
+    outw = 3 * cs.n1 // 4
+    shape = ((n_, S, T, cs.channels * outw) if with_i16
+             else (n_, S, T, cs.channels, outw))
+    if tuple(outs.shape) != shape:
+        raise AssertionError(f"{label}: output shape {tuple(outs.shape)}")
+    if not bool(torch.isfinite(carry[0]).all()) or (
+            not with_i16 and not bool(torch.isfinite(outs).all())):
+        raise AssertionError(f"{label}: non-finite output or carry")
+    print(f"path {label}: decode_chunks_scan S={S} T={T} N={n_} "
+          f"with_i16={with_i16}: launches {got}")
+    return outs, lens, got
+
+
+def spectra_bound(cs, fr) -> float:
+    """How far two evaluations of a chunk's GEMM output may differ: the
+    fp32 sum-order bound of its spectra, plus for floor 0 FLOOR0_RTOL of
+    their largest row sum (the curves differ by that much)."""
+    spectra, _, _ = synthesize_spectra_tapped(cs, fr)
+    bound = sum_order_bound(spectra)
+    if cs.has_floor0:
+        bound += FLOOR0_RTOL * float(spectra.abs().to(torch.float64)
+                                     .sum(-1).max())
+    return bound
+
+
+def anchor(label, cs, headers, fr_np, outs, out_lens, with_i16,
+           max_lsb: int = 1, prep=None) -> None:
     """The card's first chunks of a few streams against the port's plain
-    path on the CPU: i16 within 1 LSB, out_len exact, carry within the fp32
-    sum-order bound of the GEMM."""
-    cs_cpu = compile_setup(ident, setup)
+    path on the CPU: i16 within ``max_lsb`` or f32 within 2 x the GEMM
+    bound + 2 ulp, out_len exact, the carry within the GEMM bound and
+    plen/started exact. ``prep`` adds per-setup entries to the frames."""
+    prep = prep or no_prep
+    cs_cpu = compile_setup(*headers)
     sub = {k: torch.from_numpy(np.ascontiguousarray(
         np.broadcast_to(v[:ANCHOR_S], (ANCHOR_N,) + v[:ANCHOR_S].shape)))
         for k, v in fr_np.items()}
+    C, W = cs.channels, cs.n1 // 2
     (c_out, c_len), c_carry = decode_chunks_scan(
-        cs_cpu, sub, init_window_carry(cs.channels, cs.n1 // 2, ANCHOR_S))
-    lsb = int((outs[:ANCHOR_N, :ANCHOR_S].cpu().int() - c_out.int()).abs().max())
-    if lsb > 1 or not torch.equal(out_lens[:ANCHOR_N, :ANCHOR_S].cpu(), c_len):
-        raise AssertionError(f"card vs CPU plain path: {lsb} LSB or out_len")
+        cs_cpu, prep(cs_cpu, sub), init_window_carry(C, W, ANCHOR_S),
+        with_i16=with_i16)
+    bound = spectra_bound(cs_cpu, {k: v[0] for k, v in sub.items()})
+    g_out = outs[:ANCHOR_N, :ANCHOR_S].cpu()
+    if with_i16:
+        lsb = int((g_out.int() - c_out.int()).abs().max())
+        res = f"i16 max {lsb} LSB (bound {max_lsb})"
+        ok = lsb <= max_lsb
+    else:
+        d = (g_out.double() - c_out.double()).abs()
+        tol = 2 * bound + 2 * torch.from_numpy(
+            np.spacing(c_out.abs().numpy())).double()
+        res = f"f32 max |d| {float(d.max()):.3g} (2 x bound {2 * bound:.3g})"
+        ok = bool((d <= tol).all())
+    if not ok or not torch.equal(out_lens[:ANCHOR_N, :ANCHOR_S].cpu(), c_len):
+        raise AssertionError(f"{label}: card vs CPU plain path: {res}, or "
+                             f"out_len differs")
     (_, _), g_carry = decode_chunks_scan(
-        cs, {k: v[:ANCHOR_N, :ANCHOR_S].contiguous() for k, v in frs.items()},
-        init_window_carry(cs.channels, cs.n1 // 2, ANCHOR_S, cs.device))
-    bound = sum_order_bound(floor_stage(cs_cpu, {k: v[-1] for k, v in sub.items()}))
+        cs, prep(cs, {k: v.to(cs.device) for k, v in sub.items()}),
+        init_window_carry(C, W, ANCHOR_S, cs.device), with_i16=with_i16)
     dpwr = float((g_carry[0].cpu() - c_carry[0]).abs().max())
     if dpwr > bound or not all(torch.equal(g.cpu(), c)
                                for g, c in zip(g_carry[1:], c_carry[1:])):
-        raise AssertionError(f"carry: pwr |d| {dpwr} > bound {bound} or "
-                             f"plen/started differ")
-    print(f"anchor vs CPU plain path ({ANCHOR_S} streams x {ANCHOR_N} chunks): "
-          f"i16 max {lsb} LSB, out_len exact, carry |d| {dpwr:.3g} "
+        raise AssertionError(f"{label} carry: pwr |d| {dpwr} > bound {bound} "
+                             f"or plen/started differ")
+    print(f"anchor {label} vs CPU plain path ({ANCHOR_S} streams x "
+          f"{ANCHOR_N} chunks): {res}, out_len exact, carry |d| {dpwr:.3g} "
           f"<= fp32 sum-order bound {bound:.3g}")
+
+
+def path_rate(cs, frs, carry0, with_i16, plain: bool, reps: int,
+              prep=no_prep):
+    """(x_realtime, packets/s, ms per chunk) of ``prep`` then
+    decode_chunks_scan (frames in, PCM out), median of ``reps`` timed
+    calls after one warm-up call."""
+    (_, lens), _ = decode_chunks_scan(cs, prep(cs, frs), carry0,
+                                      with_i16=with_i16, plain=plain)
+    torch.cuda.synchronize()
+    samples = int(lens.sum())  # per-channel samples of the call
+    n_, s_, t_ = frs["mode"].shape
+    dts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        decode_chunks_scan(cs, prep(cs, frs), carry0, with_i16=with_i16,
+                           plain=plain)
+        torch.cuda.synchronize()
+        dts.append(time.perf_counter() - t0)
+    dt = statistics.median(dts)
+    return samples / cs.sample_rate / dt, s_ * t_ * n_ / dt, dt / n_ * 1e3
 
 
 RANGE = "chip_smoke_range"  # the profiled calls' record_function name
@@ -199,13 +392,17 @@ def stage_device_ms(fn, reps: int = 5) -> float | None:
     return sum(b - a for a, b, _ in dev) / reps / 1e3 if dev else None
 
 
-def profile_slice(cs, frs, carry0) -> None:
-    """One main-path call under the profiler: the device's busy share of
+def profile_path(label, cs, frs, carry0, with_i16, top: int = 8,
+                 prep=no_prep) -> None:
+    """One call of a path under the profiler: the device's busy share of
     the call's wall time (union of device activity intervals) and device
     ms per chunk of the largest ops."""
-    (t0, t1), dev = device_profile(lambda: decode_chunks_scan(cs, frs, carry0))
+    n_ = frs["mode"].shape[0]
+    (t0, t1), dev = device_profile(
+        lambda: decode_chunks_scan(cs, prep(cs, frs), carry0,
+                                   with_i16=with_i16))
     if not dev:
-        print("profile: the profiler recorded no device activity "
+        print(f"profile {label}: the profiler recorded no device activity "
               "(busy share not measured)")
         return
     busy, end = 0.0, t0
@@ -215,11 +412,11 @@ def profile_slice(cs, frs, carry0) -> None:
         end = max(end, b)
         per_op[name] = per_op.get(name, 0.0) + max(0.0, b - a)
     wall = t1 - t0
-    print(f"profile: one {N}-chunk call {wall / 1e3:.3f} ms wall, device "
-          f"busy {busy / 1e3:.3f} ms ({100 * busy / wall:.1f}%), idle "
+    print(f"profile {label}: one {n_}-chunk call {wall / 1e3:.3f} ms wall, "
+          f"device busy {busy / 1e3:.3f} ms ({100 * busy / wall:.1f}%), idle "
           f"{100 * (1 - busy / wall):.1f}%, {len(dev)} device activities")
-    for name, us in sorted(per_op.items(), key=lambda kv: -kv[1])[:8]:
-        print(f"profile: {us / 1e3 / N:.4f} ms/chunk  {name[:110]}")
+    for name, us in sorted(per_op.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"profile {label}: {us / 1e3 / n_:.4f} ms/chunk  {name[:110]}")
 
 
 def main() -> None:
@@ -242,8 +439,8 @@ def main() -> None:
     else:
         print(f"build: library already present ({time.perf_counter() - t0:.2f} s)")
 
-    ident, setup = synthetic_headers(channels=2, bs0_exp=8, bs1_exp=11)
-    cs = compile_setup(ident, setup, device=dev)
+    headers = synthetic_headers(channels=2, bs0_exp=8, bs1_exp=11)
+    cs = compile_setup(*headers, device=dev)
     print(f"setup: C={cs.channels} n0={cs.n0} n1={cs.n1} w_eff={cs.w_eff} "
           f"P={cs.max_posts} M={cs.mode_blockflag.shape[0]} "
           f"coupling={cs.static_coupling} residue_i16={cs.residue_i16}")
@@ -251,37 +448,97 @@ def main() -> None:
     # ---- 2. kernel vs plain on the card (bit-identical) ----
     err = check_kernels(cs, dev, np.random.default_rng(0))
 
-    # ---- 3. the main path through the kernels ----
+    # ---- 3. the main path through K1 and K2 ----
     fr_np = synthetic_frames(cs, T=T, S=S, seed=3)
     fr0 = to_dev(fr_np, dev)
-    frs = {k: v.expand((N,) + tuple(v.shape)) for k, v in fr0.items()}
+    frs = expand(fr0, N)
     carry0 = init_window_carry(cs.channels, cs.n1 // 2, S, dev)
-    torch.cuda.synchronize()
-    floor_kernel.LAUNCHES = overlap_kernel.LAUNCHES = 0
-    (outs, out_lens), carry = decode_chunks_scan(cs, frs, carry0)
-    launches = {"floor": floor_kernel.LAUNCHES,
-                "overlap": overlap_kernel.LAUNCHES}
-    torch.cuda.synchronize()
-    if launches != {"floor": N, "overlap": N}:
-        raise AssertionError(f"main path launches {launches}, expected {N} each")
-    print(f"slice: decode_chunks_scan S={S} T={T} N={N}: launches {launches}")
-    if tuple(outs.shape) != (N, S, T, cs.channels * 3 * cs.n1 // 4):
-        raise AssertionError(f"output shape {tuple(outs.shape)}")
-    if not bool(torch.isfinite(carry[0]).all()):
-        raise AssertionError("non-finite carry out of the main path")
-    anchor(cs, ident, setup, fr_np, frs, outs, out_lens)
+    outs, out_lens, main_launches = run_path(
+        "i16 main", cs, frs, carry0, True, {"floor": N, "overlap": N})
+    anchor("i16 main", cs, headers, fr_np, outs, out_lens, True)
+    del outs
 
-    # ---- 4. timing: kernels, stages, slice ----
+    # ---- 4. the further paths ----
+    new_launches = {}
+    new_paths = {}  # label -> (cs, frames, with_i16) for the rate lines
+    frs_new = expand(fr0, N_NEW)
+    outs, lens, got = run_path("f32", cs, frs_new, carry0, False,
+                               {"floor_flat": N_NEW})
+    anchor("f32", cs, headers, fr_np, outs, lens, False)
+    new_launches["floor_flat"] = got["floor_flat"]
+    new_paths["f32"] = (cs, frs_new, False)
+    del outs
+    for label, kw, make, bound in (
+            ("per-mode coupling i16", {"per_mode_coupling": True},
+             synthetic_frames, MAX_LSB["floor1"]),
+            ("floor-0 i16", {"floor0": True}, synthetic_floor0_frames,
+             MAX_LSB["floor0"])):
+        hdr = synthetic_headers(**kw)
+        cs_g = compile_setup(*hdr, device=dev)
+        g_np = make(cs_g, T=T, S=S, seed=3)
+        g0 = to_dev(g_np, dev)
+        spectra, _, _ = synthesize_spectra_tapped(cs_g, g0)
+        if not bool(torch.isfinite(spectra).all()):
+            raise AssertionError(f"{label}: non-finite spectra")
+        del spectra
+        g_frs = expand(g0, N_NEW)
+        outs, lens, _ = run_path(label, cs_g, g_frs, carry0, True,
+                                 {"overlap": N_NEW})
+        anchor(label, cs_g, hdr, g_np, outs, lens, True, max_lsb=bound)
+        new_paths[label] = (cs_g, g_frs, True)
+        del outs
+    decoder.USE_FUSED_SYNTH_KERNEL = True
+    try:
+        # precompute_brackets runs inside every drive and timed call, so
+        # the path's rate is frames in, PCM out
+        outs, lens, got = run_path("K3 i16", cs, frs_new, carry0, True,
+                                   {"synth": N_NEW, "overlap": N_NEW},
+                                   prep=precompute_brackets)
+        anchor("K3 i16", cs, headers, fr_np, outs, lens, True,
+               prep=precompute_brackets)
+        new_launches["synth"] = got["synth"]
+        del outs
+        k3_rate = (path_rate(cs, frs_new, carry0, True, False, 3,
+                             precompute_brackets),
+                   path_rate(cs, frs_new, carry0, True, True, 2,
+                             precompute_brackets))
+        profile_path("K3 i16", cs, frs_new, carry0, True, top=5,
+                     prep=precompute_brackets)
+        # more channels than K1 takes: K3's wide form, brackets contracted
+        # inside the chunk (the reference's fused branch)
+        hdr = synthetic_headers(channels=WIDE_C)
+        cs_w = compile_setup(*hdr, device=dev)
+        w_np = synthetic_frames(cs_w, T=T, S=S, seed=3)
+        outs, lens, got = run_path(
+            f"K3 {WIDE_C}ch i16", cs_w, expand(to_dev(w_np, dev), N_WIDE),
+            init_window_carry(WIDE_C, cs_w.n1 // 2, S, dev), True,
+            {"synth": N_WIDE, "overlap": N_WIDE})
+        anchor(f"K3 {WIDE_C}ch i16", cs_w, hdr, w_np, outs, lens, True)
+        del outs, cs_w
+    finally:
+        decoder.USE_FUSED_SYNTH_KERNEL = False
+    torch.cuda.empty_cache()
+
+    # ---- 5. timing: kernels, stages, paths ----
     k1, spectra, table, k2 = stage_operands(cs, fr0)
+    k3 = k3_operands(cs, fr0)
     xs_args = (cs.f1_xs, cs.f1_step, cs.static_coupling)
     ref_args = (cs.f1_step, cs.static_coupling)
     times = {
         "floor": cuda_ms(lambda: floor_kernel.floor_spectra(*k1, *xs_args), 20),
         "floor_plain": cuda_ms(
             lambda: floor_kernel.floor_spectra_ref(*k1, *ref_args), 5),
+        "floor_flat": cuda_ms(lambda: floor_kernel.floor_spectra(
+            *k1, *xs_args, ct_out=False), 20),
+        "floor_flat_plain": cuda_ms(lambda: floor_kernel.floor_spectra_ref(
+            *k1, *ref_args, ct_out=False), 5),
+        "synth": cuda_ms(lambda: synth_kernel.fused_floor_couple(*k3), 20),
+        "synth_plain": cuda_ms(
+            lambda: synth_kernel.fused_floor_couple_ref(*k3), 5),
         "overlap": cuda_ms(lambda: overlap_kernel.overlap_i16(*k2), 20),
         "overlap_plain": cuda_ms(lambda: overlap_kernel.overlap_i16_ref(*k2), 5),
     }
+    del k3
     stages = {
         "floor_prep": lambda: floor_kernel_inputs(cs, fr0),
         "floor_kernel": lambda: floor_kernel.floor_spectra(*k1, *xs_args),
@@ -291,22 +548,8 @@ def main() -> None:
         "overlap_kernel": lambda: overlap_kernel.overlap_i16(*k2),
     }
     stages = {k: stage_device_ms(fn) for k, fn in stages.items()}
-    samples = int(out_lens.sum())  # per-channel samples of N chunks
-
-    def slice_rate(plain: bool, reps: int):
-        decode_chunks_scan(cs, frs, carry0, plain=plain)
-        torch.cuda.synchronize()
-        dts = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            decode_chunks_scan(cs, frs, carry0, plain=plain)
-            torch.cuda.synchronize()
-            dts.append(time.perf_counter() - t0)
-        dt = statistics.median(dts)
-        return samples / cs.sample_rate / dt, S * T * N / dt, dt / N * 1e3
-
-    fast = slice_rate(False, 5)
-    plain = slice_rate(True, 3)
+    fast = path_rate(cs, frs, carry0, True, False, 5)
+    plain = path_rate(cs, frs, carry0, True, True, 3)
     print("timing (ms per call, headline shapes): " + ", ".join(
         f"{k} {v:.4f}" for k, v in times.items()) + f" | card: {card}")
     if None in stages.values():
@@ -316,26 +559,47 @@ def main() -> None:
             f"{k} {v:.4f}" for k, v in stages.items())
             + f", sum {sum(stages.values()):.4f} of a {fast[2]:.4f} ms chunk"
             f" | card: {card}")
-    print(f"slice aggregate_realtime_synthesis_44k1_stereo: kernels "
-          f"{fast[0]:.1f} x_realtime ({fast[1]:.1f} packets/s, "
-          f"{fast[2]:.3f} ms/chunk), plain {plain[0]:.1f} x_realtime "
-          f"({plain[1]:.1f} packets/s, {plain[2]:.3f} ms/chunk), "
-          f"S={S} T={T} N={N} | card: {card}")
 
-    # ---- 5. profile of one main-path call ----
-    profile_slice(cs, frs, carry0)
+    def rate_line(label, kern, pl, n_):
+        print(f"{label}: kernels {kern[0]:.1f} x_realtime ({kern[1]:.1f} "
+              f"packets/s, {kern[2]:.3f} ms/chunk), plain {pl[0]:.1f} "
+              f"x_realtime ({pl[1]:.1f} packets/s, {pl[2]:.3f} ms/chunk), "
+              f"S={S} T={T} N={n_} | card: {card}")
+
+    rate_line("slice aggregate_realtime_synthesis_44k1_stereo", fast, plain, N)
+    for label, (cs_p, frs_p, with_i16) in new_paths.items():
+        rate_line(f"path {label}", path_rate(cs_p, frs_p, carry0, with_i16,
+                                             False, 3),
+                  path_rate(cs_p, frs_p, carry0, with_i16, True, 2), N_NEW)
+    rate_line("path K3 i16 (precompute_brackets timed in)", *k3_rate, N_NEW)
+
+    # ---- 6. profile of one call of each path ----
+    profile_path("i16 main", cs, frs, carry0, True)
+    for label, (cs_p, frs_p, with_i16) in new_paths.items():
+        profile_path(label, cs_p, frs_p, carry0, with_i16, top=5)
 
     kernels = [
         {"name": "floor_spectra", "route": "cuda",
          "source": "lewton_tpu_torch/csrc/floor_kernel.cu",
          "replaces": "lewton_tpu/ops/floor_kernel.py:88",
-         "launches": launches["floor"], "max_abs_err": err["floor"],
+         "launches": main_launches["floor"], "max_abs_err": err["floor"],
          "ms": times["floor"], "plain_ms": times["floor_plain"]},
         {"name": "overlap_i16", "route": "cuda",
          "source": "lewton_tpu_torch/csrc/overlap_kernel.cu",
          "replaces": "lewton_tpu/ops/overlap_kernel.py:323",
-         "launches": launches["overlap"], "max_abs_err": err["overlap"],
+         "launches": main_launches["overlap"], "max_abs_err": err["overlap"],
          "ms": times["overlap"], "plain_ms": times["overlap_plain"]},
+        {"name": "floor_spectra_flat", "route": "cuda",
+         "source": "lewton_tpu_torch/csrc/floor_kernel.cu",
+         "replaces": "lewton_tpu/ops/floor_kernel.py:88",
+         "launches": new_launches["floor_flat"],
+         "max_abs_err": err["floor_flat"],
+         "ms": times["floor_flat"], "plain_ms": times["floor_flat_plain"]},
+        {"name": "fused_floor_couple", "route": "cuda",
+         "source": "lewton_tpu_torch/csrc/synth_kernel.cu",
+         "replaces": "lewton_tpu/ops/synth_kernel.py:36",
+         "launches": new_launches["synth"], "max_abs_err": err["synth"],
+         "ms": times["synth"], "plain_ms": times["synth_plain"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,13 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes; check
 the tensors a wrapper hands to them.
 
-Every ``csrc/*.cu`` file is compiled in ONE nvcc call into a shared library
+Every ``csrc/*.cu`` file is compiled to an object by its own nvcc process,
+all started together, and the objects are linked into one shared library
 with a plain C interface (no PyTorch headers: a build takes seconds, not
 minutes), under ``build/lewton_tpu_torch/`` at the root of the checkout. The
-library's file name carries a hash of the sources and flags, so an edited
-source is rebuilt on first use and a stale library is never loaded. A
-failed build raises; there is no fallback.
+library's file name carries a hash of the sources (``*.cuh`` included) and
+flags, so an edited source is rebuilt on first use and a stale library is
+never loaded. A failed build raises; there is no fallback.
 
 Flags: ``sm_90a`` (Hopper), ``--fmad=false`` so every multiply and add is
 rounded separately (the kernels are held bit-identical to their plain torch
@@ -28,17 +29,19 @@ __all__ = ["load_library", "library_path", "check_operand", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "lewton_tpu_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-prec-div=true", "-Xptxas=-v",
-    "-shared", "-Xcompiler", "-fPIC",
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH + (
+    "-std=c++17", "-O3", "--fmad=false", "-prec-div=true", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC",
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int  # pointers (and the stream), ints
 #: argument types of the C entry points (csrc/*.cu), set on load
 _SIGNATURES = {
-    "lt_floor_spectra": [_P, _P, _I, _P, _P, _P] + [_I] * 6 + [_P] * 3,
+    "lt_floor_spectra": [_P, _P, _I, _P, _P, _P] + [_I] * 6 + [_P] * 2
+    + [_I, _P],
     "lt_overlap_i16": [_P] * 7 + [_I] * 5 + [_P],
+    "lt_fused_floor_couple": [_P] * 4 + [_I] * 4 + [_P] * 3,
 }
 
 _lib: ctypes.CDLL | None = None
@@ -64,6 +67,40 @@ def library_path() -> Path:
     return BUILD_DIR / f"liblewton_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands as parallel processes, wait for all of them, and
+    return their output; raise if any failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed (exit {p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
+def _compile_and_link(so: Path) -> str:
+    """Compile every source to an object in parallel, link the library
+    into ``so``; returns nvcc's output."""
+    tmp = BUILD_DIR / f"{so.stem}.{os.getpid()}.tmp"
+    tmp.mkdir(parents=True, exist_ok=True)
+    try:
+        nvcc = _nvcc()
+        srcs = sorted(CSRC.glob("*.cu"))
+        objs = [tmp / f"{src.stem}.o" for src in srcs]
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                        for src, o in zip(srcs, objs)])
+        lib = tmp / so.name
+        log += _run_all([[nvcc, *ARCH, "-shared", "-o", str(lib),
+                          *map(str, objs)]])
+        os.replace(lib, so)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return log
+
+
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernels' shared library."""
     global _lib, build_info
@@ -71,17 +108,9 @@ def load_library() -> ctypes.CDLL:
         return _lib
     so = library_path()
     if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *map(str, sorted(CSRC.glob("*.cu")))]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)
-        build_info = (time.perf_counter() - t0, proc.stdout + proc.stderr)
+        log = _compile_and_link(so)
+        build_info = (time.perf_counter() - t0, log)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

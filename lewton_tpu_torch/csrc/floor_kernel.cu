@@ -1,7 +1,9 @@
-// K1 — floor-1 spectra for the i16 synthesis path (Hopper, sm_90a).
+// K1 — floor-1 spectra (Hopper, sm_90a).
 //
-// Replaces lewton_tpu/ops/floor_kernel.py::floor_spectra_pallas/_kernel
-// (the ct_out variant). For every packet row and bin w, for all C channels:
+// Replaces lewton_tpu/ops/floor_kernel.py::floor_spectra_pallas/_kernel in
+// both of its plain layouts: ct_out [C, rows, W] (the i16 path) and flat
+// [rows, C*W] (the f32 path; the same kernel, only the store index
+// differs). For every packet row and bin w, for all C channels:
 //
 //   1. bracket contraction: lo = sum_p e_p [x_p <= w], hi = sum_p g_p -
 //      sum_p g_p [x_p <= w] over the packet's mode segment of P+1 posts;
@@ -9,7 +11,8 @@
 //      remainder correction), clipped to [0, 255];
 //   3. inverse dB as the 4-factor product (H1*H0)*(L1*L0), masked by f_used;
 //   4. static inverse coupling over the (mag, ang) steps in reverse order;
-//   5. spectra = (curve * used) * coupled residue, written [C, rows, W].
+//   5. spectra = (curve * used) * coupled residue, written [C, rows, W]
+//      or [rows, C, W].
 //
 // Bound: memory by design. Per output element the kernel reads 2 bytes of
 // i16 residue and writes 4 bytes of f32 spectra (352 MB per chunk at the
@@ -31,54 +34,22 @@
 // so any summation order is exact and the result is bit-identical to the
 // plain version's matmul.
 //
-// Arithmetic is rounded exactly as the plain torch version rounds it
-// (lewton_tpu_torch/ops/floor_kernel.py::floor_spectra_ref): built with
-// --fmad=false, with explicit __f*_rn intrinsics where a product or sum is
-// not an exact integer.
+// Steps 2-4 are the epilogue shared with K3 (floor_epilogue.cuh), rounded
+// exactly as the plain torch version rounds them
+// (lewton_tpu_torch/ops/floor_kernel.py::floor_spectra_ref).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "floor_epilogue.cuh"
+
 namespace {
 
-constexpr int kMaxC = 8;
-constexpr int kMaxSteps = 256;  // Vorbis allows 1..256 coupling steps
+using lt_floor::kMaxC;
+using lt_floor::kMaxSteps;
+using lt_floor::Params;
 constexpr int kBlockW = 128;
 constexpr int kBlockRows = 2;
-
-struct Params {
-  int n_steps;
-  int mag[kMaxSteps];
-  int ang[kMaxSteps];
-  float db[16];  // H1[4], H0[4], L1[4], L0[4]
-};
-
-__device__ __forceinline__ float floorq(float x, float adx) {
-  float q = floorf(__fdiv_rn(x, adx));
-  const float r = __fsub_rn(x, __fmul_rn(q, adx));
-  if (r >= adx) q = __fadd_rn(q, 1.0f);
-  if (r < 0.0f) q = __fsub_rn(q, 1.0f);
-  return q;
-}
-
-__device__ __forceinline__ float bresenham_idx(float lo_x, float lo_y,
-                                               float hi_x, float hi_y,
-                                               float binx) {
-  const float dy = __fsub_rn(hi_y, lo_y);
-  const float adx = fmaxf(__fsub_rn(hi_x, lo_x), 1.0f);
-  const float sgn = dy > 0.0f ? 1.0f : (dy < 0.0f ? -1.0f : 0.0f);
-  const float ady = fabsf(dy);
-  const float x = __fmul_rn(__fsub_rn(binx, lo_x), ady);
-  const float y = __fadd_rn(lo_y, __fmul_rn(sgn, floorq(x, adx)));
-  return fminf(fmaxf(y, 0.0f), 255.0f);
-}
-
-__device__ __forceinline__ float db_value(float idx, const float* db) {
-  const int i = static_cast<int>(idx);  // integer-valued, in [0, 255]
-  const float hi = __fmul_rn(db[i >> 6], db[4 + ((i >> 4) & 3)]);
-  const float lo = __fmul_rn(db[8 + ((i >> 2) & 3)], db[12 + (i & 3)]);
-  return __fmul_rn(hi, lo);
-}
 
 // One thread = one (row, bin) for all channels (coupling mixes channels of
 // the same packet). Rows are the flattened (stream, packet) axis.
@@ -89,7 +60,8 @@ floor_spectra_kernel(const float* __restrict__ tele,
                      const float* __restrict__ scal,
                      const int* __restrict__ xs,
                      float* __restrict__ out, int rows, int C, int W, int P,
-                     int M, const __grid_constant__ Params prm) {
+                     int M, int ct_out,
+                     const __grid_constant__ Params prm) {
   const int row = blockIdx.x * kBlockRows + threadIdx.y;
   const int w = blockIdx.y * kBlockW + threadIdx.x;
   if (row >= rows || w >= W) return;
@@ -124,9 +96,9 @@ floor_spectra_kernel(const float* __restrict__ tele,
           gyc = __fadd_rn(gyc, gyp);
         }
       }
-      const float idx = bresenham_idx(lo_x, lo_y, __fsub_rn(gx_full, gxc),
-                                      __fsub_rn(gy_full, gyc), wf);
-      curve[c] = __fmul_rn(db_value(idx, prm.db), srow[1 + c]);
+      const float idx = lt_floor::bresenham_idx(
+          lo_x, lo_y, __fsub_rn(gx_full, gxc), __fsub_rn(gy_full, gyc), wf);
+      curve[c] = __fmul_rn(lt_floor::db_value(idx, prm.db), srow[1 + c]);
       res[c] = static_cast<float>(
           residue[static_cast<size_t>(row) * C * W + static_cast<size_t>(c) * W + w]);
     } else {
@@ -135,34 +107,14 @@ floor_spectra_kernel(const float* __restrict__ tele,
     }
   }
 
-  // static inverse coupling, steps in reverse order
-  for (int i = prm.n_steps - 1; i >= 0; --i) {
-    const int mi = prm.mag[i], ai = prm.ang[i];
-    float m = 0.0f, a = 0.0f;
-#pragma unroll
-    for (int c = 0; c < kMaxC; ++c) {
-      if (c == mi) m = res[c];
-      if (c == ai) a = res[c];
-    }
-    float new_m, new_a;
-    if (m > 0.0f) {
-      if (a > 0.0f) { new_m = m; new_a = __fsub_rn(m, a); }
-      else          { new_m = __fadd_rn(m, a); new_a = m; }
-    } else {
-      if (a > 0.0f) { new_m = m; new_a = __fadd_rn(m, a); }
-      else          { new_m = __fsub_rn(m, a); new_a = m; }
-    }
-#pragma unroll
-    for (int c = 0; c < kMaxC; ++c) {
-      if (c == mi) res[c] = new_m;
-      if (c == ai) res[c] = new_a;
-    }
-  }
+  lt_floor::inverse_coupling(res, prm);
 
 #pragma unroll
   for (int c = 0; c < kMaxC; ++c) {
     if (c < C) {
-      out[(static_cast<size_t>(c) * rows + row) * W + w] = __fmul_rn(curve[c], res[c]);
+      const size_t o = ct_out ? static_cast<size_t>(c) * rows + row
+                              : static_cast<size_t>(row) * C + c;
+      out[o * W + w] = __fmul_rn(curve[c], res[c]);
     }
   }
 }
@@ -171,24 +123,20 @@ floor_spectra_kernel(const float* __restrict__ tele,
 
 // C interface (loaded with ctypes). Pointers are device pointers except
 // `steps` (host, 2 * n_steps ints: mag0, ang0, mag1, ...) and `db` (host, 16
-// floats). Returns cudaGetLastError() after the launch (0 = success).
+// floats). out is [C, rows, W] when ct_out is nonzero, else [rows, C, W].
+// Returns cudaGetLastError() after the launch (0 = success).
 extern "C" int lt_floor_spectra(const void* tele, const void* residue,
                                 int residue_is_i16, const void* scal,
                                 const void* xs, void* out, int rows, int C,
                                 int W, int P, int M, int n_steps,
                                 const int* steps, const float* db,
-                                void* stream) {
+                                int ct_out, void* stream) {
   if (C < 1 || C > kMaxC || n_steps < 0 || n_steps > kMaxSteps || rows < 1 ||
       W < 1 || P < 1 || M < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params prm;
-  prm.n_steps = n_steps;
-  for (int i = 0; i < n_steps; ++i) {
-    prm.mag[i] = steps[2 * i];
-    prm.ang[i] = steps[2 * i + 1];
-  }
-  for (int i = 0; i < 16; ++i) prm.db[i] = db[i];
+  lt_floor::fill_params(&prm, n_steps, steps, db);
   const dim3 block(kBlockW, kBlockRows);
   const dim3 grid((rows + kBlockRows - 1) / kBlockRows, (W + kBlockW - 1) / kBlockW);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -198,10 +146,12 @@ extern "C" int lt_floor_spectra(const void* tele, const void* residue,
   float* o = static_cast<float*>(out);
   if (residue_is_i16) {
     floor_spectra_kernel<int16_t><<<grid, block, 0, s>>>(
-        t, static_cast<const int16_t*>(residue), sc, x, o, rows, C, W, P, M, prm);
+        t, static_cast<const int16_t*>(residue), sc, x, o, rows, C, W, P, M,
+        ct_out, prm);
   } else {
     floor_spectra_kernel<float><<<grid, block, 0, s>>>(
-        t, static_cast<const float*>(residue), sc, x, o, rows, C, W, P, M, prm);
+        t, static_cast<const float*>(residue), sc, x, o, rows, C, W, P, M,
+        ct_out, prm);
   }
   return static_cast<int>(cudaGetLastError());
 }

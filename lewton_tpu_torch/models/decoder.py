@@ -1,12 +1,25 @@
-"""Compiled stream setup and the per-chunk i16 decode core, in PyTorch.
+"""Compiled stream setup and the per-chunk decode core, in PyTorch.
 
 Ports lewton_tpu/models/decoder.py: ``CompiledSetup`` / ``compile_setup``
-(decoder.py:91-335, same field names, same static fields) and the i16 fast
-path of ``decode_frames_core`` (decoder.py:629-709, ``x_rep`` branch) with
-an explicit stream axis in place of ``vmap``:
+(decoder.py:91-335, same field names, same static fields) and the whole
+dispatch of ``decode_frames_core`` (decoder.py:436-757) with an explicit
+stream axis in place of ``vmap``. Setups in the floor kernel's gate
+(:func:`floor_kernel_ok`: floor 1 only, static coupling, <= 8 channels, a
+flat residue) run
 
-    floor1_telescopes -> floor kernel (K1, channel-major spectra)
-    -> half-width DCT-IV GEMM -> overlap scalar table -> overlap kernel (K2)
+    i16:  floor kernel K1 (channel-major) -> half-width DCT-IV GEMM
+          -> overlap kernel K2
+    f32:  floor kernel K1 (flat) -> IMDCT GEMM -> f32 overlap-add
+
+and every other setup (floor 0, per-mode coupling, more channels) runs the
+generic stages -- coupling, floor curves, curve x residue -- before the
+same GEMMs and tails, as the reference does on the TPU. With
+``USE_FUSED_SYNTH_KERNEL``, floor-1 setups with static coupling outside
+K1's gate -- frames that carry ``f1_brackets`` (:func:`precompute_brackets`),
+more than 8 channels -- go through K3. :func:`synthesis_route` makes that
+choice once per chunk. ``compact_cap`` packs the f32
+tail's PCM into one i16 buffer per stream; ``with_taps`` returns the stage
+intermediates.
 
 The reference's setup helpers live in modules that import JAX, so the small
 ones this path needs (``residue_i16_bound``, ``_dct4_np``, the ``w_eff`` and
@@ -24,14 +37,26 @@ import numpy as np
 import torch
 
 from ..header import IdentHeader, SetupHeader
-from ..ops.floor_curve import BIG_X, floor1_step_matrix, floor1_telescopes
-from ..ops.floor_kernel import check_supported, floor_spectra, floor_spectra_ref
-from ..ops.imdct import dct4_batch_parts_ct
-from ..ops.windowing import overlap_add_i16_kernel_batch
+from ..ops.coupling import inverse_coupling_batch, inverse_coupling_static
+from ..ops.floor_curve import (BIG_X, floor0_curve_batch, floor1_brackets_mxu,
+                               floor1_render, floor1_step_matrix,
+                               floor1_telescopes)
+from ..ops.floor_kernel import MAX_CHANNELS, floor_spectra, floor_spectra_ref
+from ..ops.imdct import dct4_batch_parts_ct, imdct_batch
+from ..ops.synth_kernel import fused_floor_couple, fused_floor_couple_ref
+from ..ops.windowing import (compact_i16, overlap_add_batch,
+                             overlap_add_i16_kernel_batch)
 from ..tables import bark_cos_omega, imdct_matrix, window_slope
 
 __all__ = ["CompiledSetup", "compile_setup", "from_jax_setup",
-           "floor_kernel_inputs", "floor_stage", "decode_frames_core"]
+           "floor_kernel_inputs", "floor_stage", "floor_kernel_ok",
+           "synthesis_route", "precompute_brackets", "synthesize_spectra_tapped",
+           "synthesize_audio_tapped", "decode_frames_core", "decode_frames",
+           "USE_FUSED_SYNTH_KERNEL"]
+
+#: opt-in, as in the reference (decoder.py:61): floor-1 render + coupling +
+#: product through K3 for frames that carry ``f1_brackets``
+USE_FUSED_SYNTH_KERNEL = False
 
 
 @dataclass
@@ -261,31 +286,202 @@ def floor_kernel_inputs(cs: CompiledSetup, fr: dict):
     return tele, fr["residue"].reshape(rows, C * W), scal
 
 
-def floor_stage(cs: CompiledSetup, fr: dict, plain: bool = False):
-    """Spectra f32 [C, S*T, w_eff] of frames [S, T, ...]: the floor kernel
-    (its plain version with ``plain``, or on the CPU)."""
+def floor_stage(cs: CompiledSetup, fr: dict, plain: bool = False,
+                ct_out: bool = True):
+    """Spectra f32 [C, S*T, w_eff] (``ct_out``) or [S*T, C, w_eff] of
+    frames [S, T, ...]: the floor kernel (its plain version with
+    ``plain``, or on the CPU)."""
     tele, residue, scal = floor_kernel_inputs(cs, fr)
     if plain:
         return floor_spectra_ref(tele, residue, scal, cs.f1_step,
-                                 cs.static_coupling)
+                                 cs.static_coupling, ct_out)
     return floor_spectra(tele, residue, scal, cs.f1_xs, cs.f1_step,
-                         cs.static_coupling)
+                         cs.static_coupling, ct_out)
+
+
+def floor_kernel_ok(cs: CompiledSetup, fr: dict,
+                    allow_fused: bool = True) -> bool:
+    """Whether frames [S, T, ...] take the floor kernel (the reference's
+    ``_floor_kernel_ok`` without its TPU-only VMEM and lane bounds): floor 1
+    only, static coupling, at most 8 channels, no precomputed brackets,
+    and a flat residue [S, T, C*w_eff]. Everything else takes the generic
+    stages."""
+    return (allow_fused and "f1_brackets" not in fr
+            and cs.has_floor1 and not cs.has_floor0
+            and cs.static_coupling is not None
+            and cs.channels <= MAX_CHANNELS
+            and fr["residue"].dim() == 3
+            and fr["residue"].shape[-1] == cs.channels * cs.w_eff)
+
+
+def synthesis_route(cs: CompiledSetup, fr: dict,
+                    allow_fused: bool = True) -> str:
+    """Which stages synthesize the spectra of frames [S, T, ...], as the
+    reference's ``_synthesize_spectra_tapped`` decides: ``"k1"`` (the floor
+    kernel, :func:`floor_kernel_ok`), ``"k3"`` (``USE_FUSED_SYNTH_KERNEL``
+    on a floor-1 setup with static coupling: K3 on the frames' brackets or
+    one contraction) or ``"generic"``."""
+    if floor_kernel_ok(cs, fr, allow_fused):
+        return "k1"
+    if (USE_FUSED_SYNTH_KERNEL and allow_fused and cs.has_floor1
+            and not cs.has_floor0 and cs.static_coupling is not None):
+        return "k3"
+    return "generic"
+
+
+def _brackets(cs: CompiledSetup, fr: dict, mode: torch.Tensor):
+    """Floor-1 brackets of frames [..., T, ...], 4-tuple of [rows, C,
+    w_eff]: the frames' ``f1_brackets`` or one contraction."""
+    C, W, P = cs.channels, cs.w_eff, cs.max_posts
+    rows = mode.shape[0]
+    if "f1_brackets" in fr:
+        return tuple(b.reshape(rows, C, W) for b in fr["f1_brackets"])
+    return floor1_brackets_mxu(cs.f1_xs[mode], fr["f1_ys"].reshape(rows, C, P),
+                               fr["f1_flags"].reshape(rows, C, P),
+                               cs.f1_mult[mode], mode, cs.f1_step)
+
+
+def precompute_brackets(cs: CompiledSetup, fr: dict) -> dict:
+    """fr with an ``f1_brackets`` entry: the floor-1 brackets of all the
+    frames (leaves [..., T, ...]) in one contraction over the flattened
+    leading axes, a 4-tuple of [..., T, C, w_eff]
+    (lewton_tpu.models.decoder.precompute_brackets)."""
+    if not cs.has_floor1:
+        return fr
+    lead = tuple(fr["mode"].shape)
+    br = _brackets(cs, fr, fr["mode"].reshape(-1).long())
+    fr = dict(fr)
+    fr["f1_brackets"] = tuple(b.reshape(lead + b.shape[1:]) for b in br)
+    return fr
+
+
+def synthesize_spectra_tapped(cs: CompiledSetup, fr: dict,
+                              route: str | None = None, plain: bool = False):
+    """Stages 1-3 (coupling, floors, curve x residue) of frames [S, T, ...],
+    per packet, on ``route`` (default :func:`synthesis_route`). Returns
+    (spectra f32 [S*T, C, w_eff], blockflag [S*T], taps); taps
+    (``residue_pre_inverse``, ``residue_post_inverse``, ``pre_mdct``,
+    [S*T, C, w_eff]) come from the generic stages only. With ``plain`` the
+    kernels' plain versions run in their place."""
+    S, T = fr["mode"].shape
+    C, W = cs.channels, cs.w_eff
+    rows = S * T
+    mode = fr["mode"].reshape(rows).long()
+    bf = cs.mode_blockflag[mode]
+    route = route or synthesis_route(cs, fr)
+    if route == "k1":
+        return floor_stage(cs, fr, plain, ct_out=False), bf, {}
+
+    residue = fr["residue"].reshape(rows, C, -1)[:, :, :W].to(torch.float32)
+    used = fr["f_used"].reshape(rows, C)
+    if route == "k3":
+        fn = fused_floor_couple_ref if plain else fused_floor_couple
+        spectra = fn(torch.stack(_brackets(cs, fr, mode), 1),
+                     residue.contiguous(), used, cs.static_coupling)
+        return spectra, bf, {}
+
+    # 1. inverse coupling on the raw residue (before the floor multiply)
+    taps = {"residue_pre_inverse": residue}
+    if cs.static_coupling is not None:
+        residue = inverse_coupling_static(residue, cs.static_coupling)
+    else:
+        residue = inverse_coupling_batch(residue, mode, cs.coup_mag,
+                                         cs.coup_ang, cs.coup_n)
+    taps["residue_post_inverse"] = residue
+
+    # 2. floor curves: floor 1 or floor 0 per (mode, channel), 0 if unused
+    is_f1 = cs.f_is_floor1[mode][:, :, None]
+    curve = torch.zeros_like(residue)
+    if cs.has_floor1:
+        curve = torch.where(is_f1, floor1_render(_brackets(cs, fr, mode)),
+                            curve)
+    if cs.has_floor0:
+        c0 = floor0_curve_batch(
+            fr["f0_cosc"].reshape(rows, C, -1), fr["f0_amp"].reshape(rows, C),
+            cs.f0_order[mode], cs.f0_lfv_scale[mode], cs.f0_amp_offset[mode],
+            cs.f0_cos_omega[mode])
+        curve = torch.where(is_f1, curve, c0)
+    curve = torch.where(used[:, :, None], curve, torch.zeros_like(curve))
+
+    # 3. spectra = floor x residue
+    spectra = curve * residue
+    taps["pre_mdct"] = spectra
+    return spectra, bf, taps
+
+
+def synthesize_audio_tapped(cs: CompiledSetup, fr: dict,
+                            route: str | None = None, plain: bool = False):
+    """Stages 1-4: :func:`synthesize_spectra_tapped`, then the IMDCT GEMMs.
+    Returns (audio f32 [S*T, C, n1], blockflag [S*T], taps + ``post_mdct``)."""
+    spectra, bf, taps = synthesize_spectra_tapped(cs, fr, route, plain)
+    audio = imdct_batch(spectra, bf, cs.imdct_m0, cs.imdct_m1)
+    taps["post_mdct"] = audio
+    return audio, bf, taps
 
 
 def decode_frames_core(cs: CompiledSetup, fr: dict, carry,
-                       plain: bool = False, out=None):
-    """Decode one chunk of T packets for S streams (the i16 fast path).
+                       with_i16: bool = False, compact_cap: int | None = None,
+                       with_taps: bool = False, plain: bool = False,
+                       out=None):
+    """Decode one chunk of T packets for S streams.
 
     fr: frame tensors with leaves [S, T, ...] (lewton_tpu's pack_frames
-    layout, residue flat [S, T, C*w_eff]); carry (pwr [S, C, n1/2], plen
-    [S], started [S]). With ``plain`` the kernels' plain versions run in
-    their place (on any device). ``out``, if given, is the i16 tensor the
-    samples are written into. Returns ((out i16 [S, T, C*3n1/4], out_len
-    i32 [S, T]), new_carry)."""
-    check_supported(cs)
-    audio = dct4_batch_parts_ct(floor_stage(cs, fr, plain), cs.dct4_m0,
-                                cs.dct4_m1)
-    bf = cs.mode_blockflag[fr["mode"].long()]
-    return overlap_add_i16_kernel_batch(
-        audio, bf, fr["prev_flag"], fr["next_flag"], fr["valid"],
-        cs.slope0, cs.slope1, cs.n0, cs.n1, carry, plain=plain, out=out)
+    layout; residue flat [S, T, C*w_eff] or [S, T, C, >=w_eff]); carry (pwr
+    [S, C, n1/2], plen [S], started [S]). Returns, with new_carry:
+
+    - ``with_i16`` (no ``compact_cap``, no ``with_taps``): ((i16
+      [S, T, C*3n1/4], out_len i32 [S, T]), new_carry), through the
+      overlap kernel;
+    - ``compact_cap``: ((pcm i16 [S, cap, C], total i32 [S], out_len),
+      new_carry);
+    - ``with_taps``: ((f32 [S, T, C, 3n1/4], out_len, taps with leaves
+      [S, T, ...]), new_carry);
+    - otherwise ((f32 [S, T, C, 3n1/4], out_len), new_carry).
+
+    ``out``, if given, is the tensor the samples are written into (i16 or
+    f32, as returned; not with ``compact_cap``). With ``plain`` the
+    kernels' plain versions run in their place (on any device)."""
+    S, T = fr["mode"].shape
+    route = synthesis_route(cs, fr, allow_fused=not with_taps)
+    if with_i16 and compact_cap is None and not with_taps:
+        if route == "k1":
+            spectra_ct = floor_stage(cs, fr, plain)
+        else:
+            spectra, _, _ = synthesize_spectra_tapped(cs, fr, route, plain)
+            spectra_ct = spectra.permute(1, 0, 2).contiguous()
+        audio = dct4_batch_parts_ct(spectra_ct, cs.dct4_m0, cs.dct4_m1)
+        bf = cs.mode_blockflag[fr["mode"].long()]
+        return overlap_add_i16_kernel_batch(
+            audio, bf, fr["prev_flag"], fr["next_flag"], fr["valid"],
+            cs.slope0, cs.slope1, cs.n0, cs.n1, carry, plain=plain, out=out)
+
+    if compact_cap is not None and out is not None:
+        raise ValueError("decode_frames_core: out is not taken with "
+                         "compact_cap")
+    audio, bf, taps = synthesize_audio_tapped(cs, fr, route, plain)
+    (pcm, out_len), carry = overlap_add_batch(
+        audio.reshape(S, T, cs.channels, cs.n1), bf.reshape(S, T),
+        fr["prev_flag"], fr["next_flag"], fr["valid"], cs.slope0, cs.slope1,
+        cs.n0, cs.n1, carry, out=out)
+    if with_taps:
+        taps = {k: v.reshape((S, T) + tuple(v.shape[1:]))
+                for k, v in taps.items()}
+        return (pcm, out_len, taps), carry
+    if compact_cap is not None:
+        buf, total = compact_i16(pcm, out_len, compact_cap)
+        return (buf, total, out_len), carry
+    return (pcm, out_len), carry
+
+
+def decode_frames(cs: CompiledSetup, fr: dict, carry, with_i16: bool = False,
+                  compact_cap: int | None = None, with_taps: bool = False):
+    """Single-stream chunk decode: frame leaves [T, ...], carry (pwr
+    [C, n1/2], plen [], started []); outputs as
+    :func:`decode_frames_core`'s without the stream axis."""
+    fr = {k: tuple(b[None] for b in v) if isinstance(v, tuple) else v[None]
+          for k, v in fr.items()}
+    res, carry = decode_frames_core(cs, fr, tuple(c[None] for c in carry),
+                                    with_i16, compact_cap, with_taps)
+    res = tuple({k: v[0] for k, v in r.items()} if isinstance(r, dict)
+                else r[0] for r in res)
+    return res, tuple(c[0] for c in carry)

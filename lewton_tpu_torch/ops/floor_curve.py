@@ -1,10 +1,13 @@
-"""Floor-1 numerics shared by the floor kernel's plain version.
+"""Floor numerics: floor 1 for the kernels' plain versions and the generic
+path, and the floor-0 LSP curve.
 
-Torch twins of lewton_tpu/ops/floor_curve.py, op for op, so the results are
+Torch twins of lewton_tpu/ops/floor_curve.py, op for op. Floor 1 is
 bit-identical: every intermediate is an exactly representable integer
 (< 2^24) in f32, and the inverse-dB value is the same 4-factor product in
-the same rounding order. The CUDA kernel (csrc/floor_kernel.cu) repeats the
-same arithmetic per element.
+the same rounding order. The CUDA kernels (csrc/floor_epilogue.cuh) repeat
+the same arithmetic per element. Floor 0 goes through ``sqrt`` and ``exp``,
+which differ by an ulp or two between libraries, so it is held to a
+relative bound instead (tests/test_torch_generic.py).
 """
 
 from __future__ import annotations
@@ -15,7 +18,8 @@ import torch
 from ..tables import floor1_db_four_factor
 
 __all__ = ["BIG_X", "floor1_db_value", "floor1_telescopes", "bresenham_idx",
-           "floor1_step_matrix"]
+           "floor1_step_matrix", "floor1_brackets_mxu", "floor1_render",
+           "floor0_curve_batch"]
 
 BIG_X = 1 << 24  # sentinel "no post here" x position
 VX = 1 << 15  # virtual tail post x (beyond any real x)
@@ -123,6 +127,73 @@ def bresenham_idx(lo_x, lo_y, hi_x, hi_y, binx_f):
     q = q - (r < 0).to(torch.float32)
     y = lo_y + sgn * q
     return torch.clamp(y, 0.0, 255.0)
+
+
+def floor1_brackets_mxu(xs, ys, flags, mult, mode, step):
+    """The bracketing flagged posts of every bin, (lo_x, lo_y, hi_x, hi_y)
+    f32 [T, C, W] (lewton_tpu/ops/floor_curve.floor1_brackets_mxu).
+
+    xs, ys: i32 [T, C, P] (mode-gathered sorted post x, final_y in the same
+    order); flags bool [T, C, P]; mult i32 [T, C]; mode [T]; step f32
+    [C, M*(P+1), W] (``CompiledSetup.f1_step``). The packet's mode one-hot
+    is folded into its telescopes, which are contracted against the step
+    matrix: lo = sum_p e_p [x_p <= w], hi = sum_p g_p - sum_p g_p [x_p <= w].
+    An fp32 contraction (TF32 off, pinned at package import) is exact
+    because every partial sum is an integer below 2^24."""
+    T, C, P = xs.shape
+    ex, ey, gx, gy = floor1_telescopes(xs, ys, flags, mult)
+    m = step.shape[1] // (P + 1)
+    oh = (mode[:, None] == torch.arange(m, device=xs.device)).to(torch.float32)
+
+    def contract(v):
+        vm = (v[:, :, None, :] * oh[:, None, :, None]).reshape(T, C, m * (P + 1))
+        return torch.einsum("tcp,cpw->tcw", vm, step)
+
+    return (contract(ex), contract(ey),
+            gx.sum(2, keepdim=True) - contract(gx),
+            gy.sum(2, keepdim=True) - contract(gy))
+
+
+def floor1_render(brackets) -> torch.Tensor:
+    """Floor-1 curve f32 [T, C, W] from the brackets (4-tuple of [T, C, W]):
+    the exact Bresenham index, then the inverse-dB value
+    (lewton_tpu/ops/floor_curve.floor1_render)."""
+    lo_x, lo_y, hi_x, hi_y = brackets
+    binx = torch.arange(lo_x.shape[-1], device=lo_x.device, dtype=torch.float32)
+    return floor1_db_value(bresenham_idx(lo_x, lo_y, hi_x, hi_y, binx))
+
+
+def floor0_curve_batch(cosc, amp, order, lfv_scale, amp_offset, cos_omega):
+    """Floor-0 LSP curve f32 [T, C, W] (spec 6.2.3;
+    lewton_tpu/ops/floor_curve.floor0_curve_batch, same ops in the same
+    order).
+
+    cosc f32 [T, C, Omax] cos(coefficient), pad 0; amp f32 [T, C] (0 =>
+    unused); order i32 [T, C]; lfv_scale, amp_offset f32 [T, C]; cos_omega
+    f32 [T, C, W] bark-mapped cos(omega) per bin. The exp argument is
+    clamped at 88.7, just inside f32's overflow edge, so the curve stays
+    finite."""
+    omax = cosc.shape[2]
+    odd = (order % 2) == 1
+    oddb = odd[:, :, None]
+    cw = cos_omega
+    p = torch.where(oddb, 1.0 - cw * cw, (1.0 - cw) * 0.5)
+    q = torch.where(oddb, torch.full_like(cw, 0.25), (1.0 + cw) * 0.5)
+
+    def half(x):  # floor division, as Python's // on negative orders
+        return torch.div(x, 2, rounding_mode="floor")
+
+    p_hi = torch.where(odd, half(order - 3), half(order - 2))[:, :, None]
+    q_hi = torch.where(odd, half(order - 1), half(order - 2))[:, :, None]
+    for j in range(omax // 2 + 1):
+        pm = cosc[:, :, min(2 * j + 1, omax - 1), None] - cw
+        qm = cosc[:, :, min(2 * j, omax - 1), None] - cw
+        p = torch.where(j <= p_hi, p * (4.0 * pm * pm), p)
+        q = torch.where(j <= q_hi, q * (4.0 * qm * qm), q)
+    arg = 0.11512925 * ((amp * lfv_scale)[:, :, None] / torch.sqrt(p + q)
+                        - amp_offset[:, :, None])
+    curve = torch.exp(torch.clamp(arg, max=88.7))
+    return torch.where((amp > 0)[:, :, None], curve, torch.zeros_like(curve))
 
 
 def floor1_step_matrix(f1_xs, width: int) -> np.ndarray:

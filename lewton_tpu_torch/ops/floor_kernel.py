@@ -1,10 +1,13 @@
 """K1 — floor-1 spectra: plain torch version, CUDA kernel wrapper.
 
-Ports lewton_tpu/ops/floor_kernel.py::floor_spectra_pallas (``ct_out``
-variant): bracket contraction of the telescopes against the setup's step
+Ports lewton_tpu/ops/floor_kernel.py::floor_spectra_pallas without the
+Wang split: bracket contraction of the telescopes against the setup's step
 function, exact Bresenham, inverse dB masked by ``f_used``, static inverse
-coupling, and spectra = curve x coupled residue, written channel-major
-[C, rows, W] for the DCT-IV GEMM. The CUDA kernel is csrc/floor_kernel.cu.
+coupling, and spectra = curve x coupled residue. Two output layouts, as in
+the reference: channel-major [C, rows, W] (``ct_out``, the i16 path's
+DCT-IV GEMM input) and flat [rows, C, W] (the f32 path). The CUDA kernel is
+csrc/floor_kernel.cu; it shares its epilogue with K3
+(csrc/floor_epilogue.cuh).
 
 :func:`floor_spectra` takes CPU tensors to :func:`floor_spectra_ref` and
 CUDA tensors to the kernel; it never falls back from one to the other.
@@ -20,36 +23,26 @@ import torch
 
 from .. import _build
 from ..tables import floor1_db_four_factor
+from .coupling import inverse_coupling_static
 from .floor_curve import bresenham_idx, floor1_db_value
 
-__all__ = ["check_supported", "floor_spectra", "floor_spectra_ref"]
+__all__ = ["floor_spectra", "floor_spectra_ref", "epilogue_args",
+           "MAX_CHANNELS"]
 
-#: number of kernel launches made by :func:`floor_spectra`
+#: kernel launches made by :func:`floor_spectra`, channel-major layout
 LAUNCHES = 0
+#: kernel launches made by :func:`floor_spectra`, flat layout
+LAUNCHES_FLAT = 0
 
-MAX_CHANNELS = 8  # the kernel keeps one register slot per channel
+MAX_CHANNELS = 8  # K1 keeps one register slot per channel
+MAX_STREAM_CHANNELS = 255  # a Vorbis stream's channel count is 8 bits (K3)
 MAX_STEPS = 256  # Vorbis coupling steps per mapping
 
 
-def check_supported(cs) -> None:
-    """The gate of the i16 fast path, which runs through this kernel
-    (lewton_tpu/ops/floor_kernel.pallas_floor_supported without its
-    TPU-only VMEM bounds): raise NotImplementedError for floor 0, per-mode
-    coupling or more than 8 channels. Those setups need the reference's
-    generic path, which is not ported yet."""
-    if cs.has_floor0 or not cs.has_floor1:
-        raise NotImplementedError("floor-0 setups need the generic path "
-                                  "(not ported yet)")
-    if cs.static_coupling is None:
-        raise NotImplementedError("per-mode coupling needs the generic path "
-                                  "(not ported yet)")
-    if cs.channels > MAX_CHANNELS:
-        raise NotImplementedError(f"{cs.channels} channels: the floor kernel "
-                                  f"takes at most {MAX_CHANNELS}")
-
-
-def floor_spectra_ref(tele, residue, scal, step, steps) -> torch.Tensor:
-    """Plain torch version: f32 spectra [C, rows, W].
+def floor_spectra_ref(tele, residue, scal, step, steps,
+                      ct_out: bool = True) -> torch.Tensor:
+    """Plain torch version: f32 spectra [C, rows, W] (``ct_out``) or
+    [rows, C, W].
 
     tele: f32 [rows, C*4*(P+1)] packed telescopes (channel-major, then
     ex/ey/gx/gy); residue: i16|f32 [rows, C*W]; scal: f32 [rows, 1+C]
@@ -76,16 +69,10 @@ def floor_spectra_ref(tele, residue, scal, step, steps) -> torch.Tensor:
     idx = bresenham_idx(lo_x, lo_y, hi_x, hi_y, binx)
     used = scal[:, 1:].t()[:, :, None]  # [C, rows, 1]
     curve = floor1_db_value(idx) * used
-    res = list(residue.reshape(rows, C, W).to(torch.float32).permute(1, 0, 2)
-               .unbind(0))
-    for mag, ang in reversed(steps):
-        m, a = res[mag], res[ang]
-        mpos, apos = m > 0, a > 0
-        res[mag] = torch.where(mpos, torch.where(apos, m, m + a),
-                               torch.where(apos, m, m - a))
-        res[ang] = torch.where(mpos, torch.where(apos, m - a, m),
-                               torch.where(apos, m + a, m))
-    return torch.stack([curve[c] * res[c] for c in range(C)])
+    res = inverse_coupling_static(
+        residue.reshape(rows, C, W).to(torch.float32), steps)
+    spectra = curve * res.permute(1, 0, 2)
+    return spectra if ct_out else spectra.permute(1, 0, 2).contiguous()
 
 
 @functools.cache
@@ -102,26 +89,37 @@ def _steps_arg(steps: tuple):
     return (ctypes.c_int * max(1, len(flat)))(*flat)
 
 
-def floor_spectra(tele, residue, scal, xs, step, steps) -> torch.Tensor:
-    """Spectra f32 [C, rows, W]: the plain version for CPU tensors, the CUDA
-    kernel for CUDA tensors. Arguments as :func:`floor_spectra_ref`, plus
-    xs: i32 [M, C, P] sorted post x (pad BIG_X), from which the kernel
-    evaluates the step function itself (``step`` is not read there)."""
-    global LAUNCHES
+def epilogue_args(steps, C: int, max_channels: int = MAX_CHANNELS):
+    """Check the static coupling steps against the epilogue's bounds
+    (csrc/floor_epilogue.cuh; ``max_channels`` is the calling kernel's)
+    and return the host arguments the kernels take: (n_steps, steps array,
+    inverse-dB factors)."""
+    steps = tuple(tuple(int(i) for i in st) for st in steps)
+    if not 1 <= C <= max_channels or len(steps) > MAX_STEPS:
+        raise ValueError(f"the kernel takes 1..{max_channels} channels and "
+                         f"<= {MAX_STEPS} coupling steps")
+    if any(not (0 <= i < C) for st in steps for i in st):
+        raise ValueError(f"coupling steps {steps} index past {C} channels")
+    return len(steps), _steps_arg(steps), _db_arg()
+
+
+def floor_spectra(tele, residue, scal, xs, step, steps,
+                  ct_out: bool = True) -> torch.Tensor:
+    """Spectra f32 [C, rows, W] (``ct_out``) or [rows, C, W]: the plain
+    version for CPU tensors, the CUDA kernel for CUDA tensors. Arguments as
+    :func:`floor_spectra_ref`, plus xs: i32 [M, C, P] sorted post x (pad
+    BIG_X), from which the kernel evaluates the step function itself
+    (``step`` is not read there)."""
+    global LAUNCHES, LAUNCHES_FLAT
     dev = tele.device
     if dev.type == "cpu":
-        return floor_spectra_ref(tele, residue, scal, step, steps)
+        return floor_spectra_ref(tele, residue, scal, step, steps, ct_out)
     if dev.type != "cuda":
         raise ValueError(f"floor_spectra: unsupported device {dev}")
     rows = tele.shape[0]
     M, C, P = xs.shape
     W = step.shape[-1]
-    steps = tuple(tuple(st) for st in steps)
-    if not 1 <= C <= MAX_CHANNELS or len(steps) > MAX_STEPS:
-        raise ValueError(f"floor kernel takes 1..{MAX_CHANNELS} channels and "
-                         f"<= {MAX_STEPS} coupling steps")
-    if any(not (0 <= i < C) for st in steps for i in st):
-        raise ValueError(f"coupling steps {steps} index past {C} channels")
+    n_steps, steps_arr, db_arr = epilogue_args(steps, C)
     check = _build.check_operand
     check("tele", tele, torch.float32, (rows, C * 4 * (P + 1)), dev)
     if residue.dtype not in (torch.int16, torch.float32):
@@ -130,18 +128,22 @@ def floor_spectra(tele, residue, scal, xs, step, steps) -> torch.Tensor:
     check("scal", scal, torch.float32, (rows, 1 + C), dev)
     check("xs", xs, torch.int32, (M, C, P), dev)
     check("step", step, torch.float32, (C, M * (P + 1), W), dev)
-    out = torch.empty((C, rows, W), dtype=torch.float32, device=dev)
+    shape = (C, rows, W) if ct_out else (rows, C, W)
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
     if rows == 0 or W == 0:
         return out
     fn = _build.load_library().lt_floor_spectra
-    steps_arr, db_arr = _steps_arg(steps), _db_arg()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(tele.data_ptr(), residue.data_ptr(),
                  int(residue.dtype == torch.int16), scal.data_ptr(),
-                 xs.data_ptr(), out.data_ptr(), rows, C, W, P, M, len(steps),
-                 ctypes.addressof(steps_arr), ctypes.addressof(db_arr), stream)
+                 xs.data_ptr(), out.data_ptr(), rows, C, W, P, M, n_steps,
+                 ctypes.addressof(steps_arr), ctypes.addressof(db_arr),
+                 int(ct_out), stream)
     if err != 0:
         raise RuntimeError(f"floor kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
+    if ct_out:
+        LAUNCHES += 1
+    else:
+        LAUNCHES_FLAT += 1
     return out

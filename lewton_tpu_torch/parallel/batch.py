@@ -15,23 +15,35 @@ from ..models.decoder import CompiledSetup, decode_frames_core
 
 __all__ = ["decode_chunk_batch", "decode_chunks_scan"]
 
-#: one chunk for S streams, under the reference's name
+
+#: one chunk for S streams (``with_i16``, ``compact_cap`` as the
+#: reference's), under the reference's name
 decode_chunk_batch = decode_frames_core
 
 
+def _chunk(frs: dict, i: int) -> dict:
+    """Chunk i of frames with leaves [N, ...] (``f1_brackets`` is a tuple)."""
+    return {k: tuple(b[i] for b in v) if isinstance(v, tuple) else v[i]
+            for k, v in frs.items()}
+
+
 def decode_chunks_scan(cs: CompiledSetup, frs: dict, carry,
-                       plain: bool = False):
-    """N chunks in order: frs leaves [N, S, T, ...]. Returns ((out i16
-    [N, S, T, C*3n1/4], out_len i32 [N, S, T]), final carry). Each chunk's
-    samples are written straight into its slice of ``out``."""
+                       with_i16: bool = False, plain: bool = False):
+    """N chunks in order: frs leaves [N, S, T, ...]. Returns ((out, out_len
+    i32 [N, S, T]), final carry), out i16 [N, S, T, C*3n1/4] with
+    ``with_i16``, else f32 [N, S, T, C, 3n1/4]. Each chunk's samples are
+    written into its slice of ``out``."""
     N, S, T = frs["mode"].shape
     dev = frs["mode"].device
-    out = torch.empty((N, S, T, cs.channels * (3 * cs.n1 // 4)),
-                      dtype=torch.int16, device=dev)
+    outw = 3 * cs.n1 // 4
+    out = (torch.empty((N, S, T, cs.channels * outw), dtype=torch.int16,
+                       device=dev) if with_i16 else
+           torch.empty((N, S, T, cs.channels, outw), dtype=torch.float32,
+                       device=dev))
     lens = torch.empty((N, S, T), dtype=torch.int32, device=dev)
     for i in range(N):
         (_, out_len), carry = decode_frames_core(
-            cs, {k: v[i] for k, v in frs.items()}, carry, plain=plain,
+            cs, _chunk(frs, i), carry, with_i16=with_i16, plain=plain,
             out=out[i])
         lens[i] = out_len
     return (out, lens), carry

@@ -5,8 +5,10 @@ Marked ``cuda``: these skip where there is no card. On a machine with one
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Both kernels round exactly as their plain versions do, so the tolerance is
-zero. chip_smoke.py repeats these checks at the headline shapes.
+Every kernel rounds exactly as its plain version does, so the tolerance
+is zero. The generic path on the card is held to the port's plain path on
+the CPU: the GEMMs sum in other orders there, so i16 within 1 LSB.
+chip_smoke.py repeats these checks at the headline shapes.
 """
 
 import numpy as np
@@ -14,12 +16,14 @@ import pytest
 import torch
 
 from lewton_tpu_torch.models.decoder import (compile_setup,
-                                             floor_kernel_inputs, floor_stage)
-from lewton_tpu_torch.ops import floor_kernel, overlap_kernel
+                                             floor_kernel_inputs, floor_stage,
+                                             precompute_brackets)
+from lewton_tpu_torch.ops import floor_kernel, overlap_kernel, synth_kernel
 from lewton_tpu_torch.ops.imdct import dct4_batch_parts_ct
 from lewton_tpu_torch.ops.windowing import init_window_carry, overlap_table
 from lewton_tpu_torch.parallel.batch import decode_chunks_scan
-from lewton_tpu_torch.testing import synthetic_frames, synthetic_headers
+from lewton_tpu_torch.testing import (synthetic_floor0_frames,
+                                      synthetic_frames, synthetic_headers)
 
 pytestmark = pytest.mark.cuda
 
@@ -33,7 +37,8 @@ def dev():
 
 def _frames(cs, S, T, seed, dev, dtype=None):
     rng = np.random.default_rng(seed)
-    fr = synthetic_frames(cs, T=T, S=S, seed=seed)
+    make = synthetic_floor0_frames if cs.has_floor0 else synthetic_frames
+    fr = make(cs, T=T, S=S, seed=seed)
     fr["mode"][:] = rng.integers(0, 2, fr["mode"].shape)
     fr["f_used"][:] = rng.random(fr["f_used"].shape) < 0.8
     for s in range(S):
@@ -58,6 +63,32 @@ def test_floor_kernel_matches_plain(dev, C, dtype):
     assert floor_kernel.LAUNCHES == before + 1
     want = floor_kernel.floor_spectra_ref(*ops, cs.f1_step,
                                           cs.static_coupling)
+    before = floor_kernel.LAUNCHES_FLAT
+    flat = floor_kernel.floor_spectra(*ops, cs.f1_xs, cs.f1_step,
+                                      cs.static_coupling, ct_out=False)
+    assert floor_kernel.LAUNCHES_FLAT == before + 1
+    flat_want = floor_kernel.floor_spectra_ref(
+        *ops, cs.f1_step, cs.static_coupling, ct_out=False)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(_bits(flat), _bits(flat_want))
+    assert torch.equal(_bits(flat), _bits(got.permute(1, 0, 2)))
+
+
+@pytest.mark.parametrize("C", [1, 2, 6, 10])
+def test_synth_kernel_matches_plain(dev, C):
+    """K3 in registers (C <= 8) and in its wide form (C = 10)."""
+    cs = compile_setup(*synthetic_headers(C, 8, 11), device=dev)
+    fr = precompute_brackets(cs, _frames(cs, 3, 37, C, dev))
+    br = torch.stack(fr["f1_brackets"], 2).reshape(3 * 37, 4, C, cs.w_eff)
+    residue = fr["residue"].reshape(3 * 37, C, cs.w_eff).float()
+    used = fr["f_used"].reshape(3 * 37, C)
+    before = synth_kernel.LAUNCHES
+    got = synth_kernel.fused_floor_couple(br, residue, used,
+                                          cs.static_coupling)
+    assert synth_kernel.LAUNCHES == before + 1
+    want = synth_kernel.fused_floor_couple_ref(br, residue, used,
+                                               cs.static_coupling)
     torch.cuda.synchronize()
     assert torch.equal(_bits(got), _bits(want))
 
@@ -98,9 +129,35 @@ def test_slice_runs_through_kernels(dev):
     frs = {k: torch.stack([c[k] for c in chunks]) for k in chunks[0]}
     carry = init_window_carry(2, cs.n1 // 2, S, dev)
     f0, o0 = floor_kernel.LAUNCHES, overlap_kernel.LAUNCHES
-    (out, ln), c = decode_chunks_scan(cs, frs, carry)
+    (out, ln), c = decode_chunks_scan(cs, frs, carry, with_i16=True)
     assert (floor_kernel.LAUNCHES - f0, overlap_kernel.LAUNCHES - o0) == (N, N)
-    (out_p, ln_p), c_p = decode_chunks_scan(cs, frs, carry, plain=True)
+    (out_p, ln_p), c_p = decode_chunks_scan(cs, frs, carry, with_i16=True,
+                                            plain=True)
     torch.cuda.synchronize()
     assert torch.equal(out, out_p) and torch.equal(ln, ln_p)
     assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(c, c_p))
+
+
+@pytest.mark.parametrize("kw", [{"floor0": True}, {"per_mode_coupling": True},
+                                {"channels": 10}])
+def test_generic_i16_path_matches_cpu(dev, kw):
+    """Setups outside K1's gate: generic stages, DCT-IV GEMM, K2 (and no
+    K1) on the card, against the port's plain path on the CPU."""
+    headers = synthetic_headers(**kw)
+    cs = compile_setup(*headers, device=dev)
+    N, S, T = 2, 3, 40
+    chunks = [_frames(cs, S, T, 30 + n, dev) for n in range(N)]
+    frs = {k: torch.stack([c[k] for c in chunks]) for k in chunks[0]}
+    carry = init_window_carry(cs.channels, cs.n1 // 2, S, dev)
+    k1 = (floor_kernel.LAUNCHES, floor_kernel.LAUNCHES_FLAT)
+    o0 = overlap_kernel.LAUNCHES
+    (out, ln), c = decode_chunks_scan(cs, frs, carry, with_i16=True)
+    assert (floor_kernel.LAUNCHES, floor_kernel.LAUNCHES_FLAT) == k1
+    assert overlap_kernel.LAUNCHES - o0 == N
+    cs_cpu = compile_setup(*headers)
+    (out_c, ln_c), c_c = decode_chunks_scan(
+        cs_cpu, {k: v.cpu() for k, v in frs.items()},
+        init_window_carry(cs.channels, cs.n1 // 2, S), with_i16=True)
+    assert (out.cpu().int() - out_c.int()).abs().max() <= 1
+    assert torch.equal(ln.cpu(), ln_c)
+    assert bool(torch.isfinite(c[0]).all())

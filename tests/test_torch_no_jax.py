@@ -35,27 +35,41 @@ mods = [m.name for m in pkgutil.walk_packages(lewton_tpu_torch.__path__,
 for m in mods:
     importlib.import_module(m)
 import chip_smoke  # noqa: F401
+assert {"lewton_tpu_torch.ops.coupling",
+        "lewton_tpu_torch.ops.synth_kernel"} <= set(mods)
 
 import torch
 from lewton_tpu_torch import _build
-from lewton_tpu_torch.models.decoder import compile_setup
-from lewton_tpu_torch.ops import floor_kernel, overlap_kernel
+from lewton_tpu_torch.models import decoder
+from lewton_tpu_torch.models.decoder import compile_setup, precompute_brackets
+from lewton_tpu_torch.ops import floor_kernel, overlap_kernel, synth_kernel
 from lewton_tpu_torch.ops.windowing import init_window_carry
 from lewton_tpu_torch.parallel.batch import decode_chunks_scan
-from lewton_tpu_torch.testing import synthetic_frames, synthetic_headers
+from lewton_tpu_torch.testing import (synthetic_floor0_frames,
+                                      synthetic_frames, synthetic_headers)
 
 assert not torch.backends.cuda.matmul.allow_tf32
 assert not torch.backends.cudnn.allow_tf32
 assert torch.get_float32_matmul_precision() == "highest"
-cs = compile_setup(*synthetic_headers(2, 8, 11))
-fr = synthetic_frames(cs, T=8, S=2, seed=0)
-frs = {k: torch.from_numpy(v)[None] for k, v in fr.items()}
-carry = init_window_carry(2, cs.n1 // 2, 2)
-(out, ln), c = decode_chunks_scan(cs, frs, carry)
-(out_p, ln_p), c_p = decode_chunks_scan(cs, frs, carry, plain=True)
-assert torch.equal(out, out_p) and torch.equal(ln, ln_p)
-assert all(torch.equal(a, b) for a, b in zip(c, c_p))
-assert floor_kernel.LAUNCHES == 0 and overlap_kernel.LAUNCHES == 0
+# every path: the floor kernel's two layouts, K3, and the generic stages
+for kw, fused in (({}, False), ({}, True), ({"floor0": True}, False),
+                  ({"per_mode_coupling": True}, False)):
+    cs = compile_setup(*synthetic_headers(**kw))
+    make = synthetic_floor0_frames if cs.has_floor0 else synthetic_frames
+    frs = {k: torch.from_numpy(v)[None]
+           for k, v in make(cs, T=8, S=2, seed=0).items()}
+    if fused:
+        frs = precompute_brackets(cs, frs)
+    decoder.USE_FUSED_SYNTH_KERNEL = fused
+    carry = init_window_carry(2, cs.n1 // 2, 2)
+    for with_i16 in (False, True):
+        (out, ln), c = decode_chunks_scan(cs, frs, carry, with_i16=with_i16)
+        (out_p, ln_p), c_p = decode_chunks_scan(cs, frs, carry,
+                                                with_i16=with_i16, plain=True)
+        assert torch.equal(out, out_p) and torch.equal(ln, ln_p)
+        assert all(torch.equal(a, b) for a, b in zip(c, c_p))
+assert (floor_kernel.LAUNCHES, floor_kernel.LAUNCHES_FLAT,
+        overlap_kernel.LAUNCHES, synth_kernel.LAUNCHES) == (0, 0, 0, 0)
 assert _build._lib is None
 assert not any(m.split(".")[0] in REFUSED for m in sys.modules)
 print("OK", len(mods))
@@ -89,12 +103,17 @@ def test_wrappers_refuse_other_devices():
     no silent fallback to the plain version."""
     from lewton_tpu_torch.ops.floor_kernel import floor_spectra
     from lewton_tpu_torch.ops.overlap_kernel import overlap_i16
+    from lewton_tpu_torch.ops.synth_kernel import fused_floor_couple
 
     meta = torch.empty((4, 2 * 4 * 3), device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        floor_spectra(meta, meta, meta, meta, meta, ())
+    for ct_out in (True, False):
+        with pytest.raises(ValueError, match="unsupported device"):
+            floor_spectra(meta, meta, meta, meta, meta, (), ct_out=ct_out)
     with pytest.raises(ValueError, match="unsupported device"):
         overlap_i16(meta, None, meta, meta, meta, 256, 256)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_floor_couple(torch.empty((4, 4, 2, 8), device="meta"), meta,
+                           meta, ())
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

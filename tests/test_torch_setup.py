@@ -5,30 +5,38 @@ reference's ``compile_setup`` (which imports JAX); both must produce the
 same tables bit for bit, and ``from_jax_setup`` must carry the reference's
 setup across unchanged. The port's own constant tables, header records and
 synthetic frames (which let it run without ``lewton_tpu``) are held equal
-to the reference's. Also pins the i16 fast path's gate: setups it does not
-take raise NotImplementedError instead of decoding.
+to the reference's. Also decodes the three kinds of setup outside the floor
+kernel's gate (per-mode coupling, more than 8 channels, floor 0) through
+the generic stages, against the reference (i16 within 1 LSB).
 """
 
 import dataclasses
 import os
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from lewton_tpu import tables as jtab
 from lewton_tpu import testing as jtesting
-from lewton_tpu.header import Floor0, read_header_ident, read_header_setup
+from lewton_tpu.header import Floor0 as JFloor0
+from lewton_tpu.header import Mapping as JMapping
+from lewton_tpu.header import Mode as JMode
+from lewton_tpu.header import read_header_ident, read_header_setup
 from lewton_tpu.inside_ogg import read_headers
 from lewton_tpu.models.decoder import compile_setup as jax_compile_setup
 from lewton_tpu.ogg import PacketReader
+from lewton_tpu.ops.windowing import init_window_carry as jax_init_carry
+from lewton_tpu.parallel.batch import decode_chunk_batch as jax_chunk
 from lewton_tpu_torch import tables as ttab
-from lewton_tpu_torch.header import Mapping, Mode
 from lewton_tpu_torch.models.decoder import (CompiledSetup, compile_setup,
                                              decode_frames_core,
-                                             from_jax_setup)
+                                             floor_kernel_ok, from_jax_setup)
 from lewton_tpu_torch.ops.windowing import init_window_carry
-from lewton_tpu_torch.testing import synthetic_frames, synthetic_headers
+from lewton_tpu_torch.testing import (synthetic_floor0_frames,
+                                      synthetic_frames, synthetic_headers)
 
 
 def carry_across(jcs):
@@ -118,31 +126,65 @@ def test_compile_setup_floor0():
     ident_pkt, _, setup_pkt = build_headers(channels=2, coupling=True)
     ident = read_header_ident(ident_pkt)
     setup = read_header_setup(setup_pkt, ident)
-    assert any(isinstance(f, Floor0) for f in setup.floors)
+    assert any(isinstance(f, JFloor0) for f in setup.floors)
     _check(ident, setup)
 
 
-def _gated(ident, setup):
-    cs = compile_setup(ident, setup)
-    S, T = 1, 4
-    fr = {k: torch.from_numpy(v)
-          for k, v in synthetic_frames(cs, T=T, S=S).items()}
-    with pytest.raises(NotImplementedError):
-        decode_frames_core(cs, fr, init_window_carry(cs.channels,
-                                                     cs.n1 // 2, S))
+def _gated(ident, setup, port_headers=None):
+    """A setup outside the floor kernel's gate decodes through the generic
+    stages as the reference does: one chunk of two streams, i16 within
+    1 LSB, out_len exact. The reference compiles ``(ident, setup)``, the
+    port ``port_headers`` (default: the same headers)."""
+    cs = compile_setup(*(port_headers or (ident, setup)))
+    S, T = 2, 8
+    make = synthetic_floor0_frames if cs.has_floor0 else synthetic_frames
+    fr = make(cs, T=T, S=S, seed=5)
+    tfr = {k: torch.from_numpy(v) for k, v in fr.items()}
+    assert not floor_kernel_ok(cs, tfr)
+    W = cs.n1 // 2
+    jcarry = jax.tree.map(lambda x: jnp.broadcast_to(x, (S,) + x.shape),
+                          jax_init_carry(cs.channels, W))
+    (j_out, j_len), _ = jax_chunk(
+        jax_compile_setup(ident, setup),
+        {k: jnp.asarray(v) for k, v in fr.items()}, jcarry, with_i16=True)
+    (out, out_len), _ = decode_frames_core(
+        cs, tfr, init_window_carry(cs.channels, W, S), with_i16=True)
+    d = np.abs(np.asarray(j_out, np.int32) - out.numpy().astype(np.int32))
+    assert d.max() <= 1
+    assert np.array_equal(np.asarray(j_len), out_len.numpy())
+    assert int(out_len.sum()) > 0 and bool((out != 0).any())
+
+
+def _per_mode_coupling_headers():
+    """The reference's flagship headers with mode 1 on an uncoupled
+    mapping."""
+    ident, setup = jtesting.synthetic_headers(2, 8, 11)
+    setup.mappings.append(JMapping(
+        submaps=1, coupling_magnitude=[], coupling_angle=[], mux=[0, 0],
+        submap_floor=[0], submap_residue=[0]))
+    setup.modes[1] = JMode(1, 1)
+    return ident, setup
+
+
+def test_synthetic_generic_variants_match_reference():
+    """The port's per-mode-coupling and floor-0 variants of the flagship
+    setup compile to the reference's tables for the same headers."""
+    _check(*_per_mode_coupling_headers(),
+           port_headers=synthetic_headers(per_mode_coupling=True))
+    ident, setup = jtesting.synthetic_headers(2, 8, 11)
+    setup.floors = [JFloor0(order=2, rate=44100, bark_map_size=64,
+                            amplitude_bits=6, amplitude_offset=136, books=[0])]
+    _check(ident, setup, port_headers=synthetic_headers(floor0=True))
 
 
 def test_gate_per_mode_coupling():
-    ident, setup = synthetic_headers(2, 8, 11)
-    setup.mappings.append(Mapping(
-        submaps=1, coupling_magnitude=[], coupling_angle=[], mux=[0, 0],
-        submap_floor=[0], submap_residue=[0]))
-    setup.modes[1] = Mode(1, 1)
-    _gated(ident, setup)
+    _gated(*_per_mode_coupling_headers(),
+           port_headers=synthetic_headers(per_mode_coupling=True))
 
 
 def test_gate_channels():
-    _gated(*synthetic_headers(10, 8, 11))
+    _gated(*jtesting.synthetic_headers(10, 8, 11),
+           port_headers=synthetic_headers(10, 8, 11))
 
 
 def test_gate_floor0():

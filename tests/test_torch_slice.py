@@ -50,7 +50,7 @@ def _compare(ident, setup, frs):
         with_i16=True)
     tfrs = {k: torch.from_numpy(v) for k, v in frs.items()}
     (out, out_len), (pwr, plen, started) = decode_chunks_scan(
-        cs, tfrs, init_window_carry(cs.channels, W, S))
+        cs, tfrs, init_window_carry(cs.channels, W, S), with_i16=True)
 
     assert tuple(out.shape) == np.asarray(j_out).shape
     d = np.abs(np.asarray(j_out, np.int32) - out.numpy().astype(np.int32))
