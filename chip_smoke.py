@@ -4,15 +4,17 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``lewton_tpu_torch/csrc/`` with nvcc
-(one process per source, in parallel) and holds each kernel -- K1 in both
-layouts, K2, K3 -- against its plain torch version on the card, bit for
-bit, at the headline shapes (S=256 streams x T=128 packets, flagship
-stereo 44.1 kHz setup), at an odd T, at the crafted geometries the port
-sends to its kernels and the reference never did, and (K3) at 10 channels.
-Then it drives each path
-of ``decode_chunks_scan`` with the launch counts set to 0 just before and
-read just after, and requires the kernels of that path, and only those, to
-have run once per chunk:
+(one process per source, in parallel) and holds each kernel form -- K1
+channel-major, flat and ``cd_n`` (the Wang split's rotated pair), K2 on
+DCT-IV X, on the split halves (U, V) and on IMDCT audio (un-selected or
+pre-selected, channel-major or not), K3 -- against its plain torch version
+on the card, bit for bit, at the headline shapes (S=256 streams x T=128
+packets, flagship stereo 44.1 kHz setup), at an odd T, at the crafted
+geometries the port sends to its kernels and the reference never did (the
+split forms at those with n1 >= 512), and (K3) at 10 channels. Then it
+drives each path of ``decode_chunks_scan`` with the launch counts set to 0
+just before and read just after, and requires the kernels of that path,
+and only those, to have run once per chunk:
 
 - the i16 main path (N=16 chunks): K1 channel-major, DCT-IV GEMM, K2;
 - the f32 path (N=4): K1 flat, IMDCT GEMM, f32 overlap-add;
@@ -20,19 +22,27 @@ have run once per chunk:
   generic stages, DCT-IV GEMM, K2;
 - the opt-in K3 path (``USE_FUSED_SYNTH_KERNEL``, N=4): precompute_brackets,
   K3, DCT-IV GEMM, K2; and at 10 channels (N=2), past K1's gate, where
-  K3's wide form runs on brackets contracted inside the chunk.
+  K3's wide form runs on brackets contracted inside the chunk;
+- the Wang-split i16 path (``USE_DCT4_SPLIT``, N=4): K1 cd_n, the two
+  half-size GEMMs and the short one, K2 split_in; and with per-mode
+  coupling (generic stages, the rotation in torch, K2 split_in);
+- a caller-supplied IMDCT (N=4): generic stages, the caller's transform,
+  K2's audio form.
 
 Each path's first chunks are anchored to the port's plain path on the CPU.
-It times the kernels against their plain versions, each stage of a main
-path chunk and each path on its kernels and on its plain versions, and
-profiles one call of each path (device busy share, device time per op). Every
-failed check raises, so the exit code is nonzero. The last stdout line is
+It times the kernels against their plain versions (with each kernel's
+bound: the larger of its bytes over the card's memory rate and its
+operations over the FP32 peak), each stage of a main path chunk and each
+path on its kernels and on its plain versions, and profiles one call of
+each path (device busy share, device time per op). Every failed check
+raises, so the exit code is nonzero. The last stdout line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels as
 JSON. Needs torch and numpy only.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -46,10 +56,14 @@ from lewton_tpu_torch import _build
 from lewton_tpu_torch.models import decoder
 from lewton_tpu_torch.models.decoder import (compile_setup,
                                              floor_kernel_inputs, floor_stage,
-                                             precompute_brackets,
+                                             precompute_brackets, split_ok,
                                              synthesize_spectra_tapped)
-from lewton_tpu_torch.ops import floor_kernel, overlap_kernel, synth_kernel
-from lewton_tpu_torch.ops.imdct import dct4_batch_parts_ct, sum_order_bound
+from lewton_tpu_torch.ops import (floor_kernel, imdct, overlap_kernel,
+                                  synth_kernel)
+from lewton_tpu_torch.ops.imdct import (dct4_batch_parts_ct,
+                                        dct4_split_uv_from_cd,
+                                        imdct_batch_parts_ct, split_butterfly,
+                                        split_cd_head, sum_order_bound)
 from lewton_tpu_torch.ops.windowing import init_window_carry, overlap_table
 from lewton_tpu_torch.parallel.batch import decode_chunks_scan
 from lewton_tpu_torch.testing import (synthetic_floor0_frames,
@@ -72,6 +86,17 @@ GEO_S, GEO_T = 4, 37
 #: budget of the conformance contract
 MAX_LSB = {"floor1": 1, "floor0": 2}
 FLOOR0_RTOL = 2.0 ** -16  # floor-0 curve, relative (tests/test_torch_generic.py)
+#: the card's published rates (H100 SXM data sheet, at 700 W): device
+#: memory, and FP32 outside the tensor cores
+HBM_BYTES_PER_S, FP32_FLOP_PER_S = 3.35e12, 67e12
+#: arithmetic per output element of each kernel, for its operations bound:
+#: K1 -- 4 bracket sums (a running sum over the sorted posts needs one add
+#: each per bin), the Bresenham index (~10), inverse dB (3), the mask and
+#: the product (2), 2 per coupling step (~2); K1 cd_n adds the rotation (3
+#: per value); K3 is K1 without the bracket sums; K2 -- the window mix (3),
+#: x32768, clamp and truncation (4), the split form one add more
+OPS = {"floor": 21, "floor_flat": 21, "floor_cd": 24, "synth": 17,
+       "overlap": 7, "overlap_split": 8, "overlap_audio": 7}
 
 
 def card_line() -> str:
@@ -138,16 +163,48 @@ def k3_operands(cs, fr):
             fr["f_used"].reshape(rows, C), cs.static_coupling)
 
 
+def bound_of(ops: int, inputs, outputs) -> tuple[float, str]:
+    """(bound_ms, bound_by) of a kernel: the larger of the bytes it must
+    move (each input read once, each output written once) over the card's
+    memory rate and its operations over the FP32 peak."""
+    moved = sum(t.numel() * t.element_size() for t in (*inputs, *outputs)
+                if isinstance(t, torch.Tensor))
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def _same_bits(a, b) -> bool:
     if a.dtype == torch.float32:
         a, b = a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)
     return torch.equal(a, b)
 
 
+def audio_forms(cs, spectra, bf):
+    """The IMDCT audio of channel-major spectra [C, rows, w_eff] in the
+    four input forms of K2's audio form: (label, long, short, ct_in), long
+    [C, rows, n1] or [rows, C, n1], short likewise with n0 or None
+    (pre-selected: short rows hold their n0 samples, then zeros)."""
+    long_a, short_a = imdct_batch_parts_ct(spectra, cs.imdct_m0, cs.imdct_m1)
+    sel = long_a
+    if short_a is not None:
+        pad = torch.nn.functional.pad(short_a, (0, cs.n1 - cs.n0))
+        sel = torch.where((bf == 1).reshape(1, -1, 1), long_a, pad)
+
+    def rows(a):
+        return None if a is None else a.permute(1, 0, 2).contiguous()
+
+    return (("ct", long_a, short_a, True), ("ct selected", sel, None, True),
+            ("rows", rows(long_a), rows(short_a), False),
+            ("rows selected", rows(sel), None, False))
+
+
 def check_at(cs, s_, t_, seed, rng, err: dict, what: str) -> None:
-    """K1 (both layouts), K3 and K2 against their plain versions on the
-    card, bit for bit, for frames [s_, t_] with random valid prefixes and a
-    random carry; K1 flat also against K1 channel-major transposed."""
+    """Every kernel form against its plain version on the card, bit for
+    bit, for frames [s_, t_] with random valid prefixes and a random carry:
+    K1 (channel-major, flat, and cd_n where n1 >= 512), K3, K2 (X form,
+    split form where n1 >= 512, the four audio forms); K1 flat also
+    against K1 channel-major transposed."""
     dev = cs.device
     W = cs.n1 // 2
     fr = synthetic_frames(cs, T=t_, S=s_, seed=seed)
@@ -164,6 +221,11 @@ def check_at(cs, s_, t_, seed, rng, err: dict, what: str) -> None:
                        floor_kernel.floor_spectra_ref(*k1, *ref_args,
                                                       ct_out=False)),
     }
+    split = cs.n1 >= 512
+    if split:
+        pairs["floor_cd"] = (
+            floor_kernel.floor_spectra(*k1, *args, cd_n=W),
+            floor_kernel.floor_spectra_ref(*k1, *ref_args, cd_n=W))
     k3 = k3_operands(cs, fr)
     pairs["synth"] = (synth_kernel.fused_floor_couple(*k3),
                       synth_kernel.fused_floor_couple_ref(*k3))
@@ -174,10 +236,20 @@ def check_at(cs, s_, t_, seed, rng, err: dict, what: str) -> None:
     plen0 = torch.from_numpy(
         rng.choice([0, cs.n0 // 2, W], s_).astype("int32")).to(dev)
     started0 = torch.from_numpy(rng.integers(0, 2, s_).astype(bool)).to(dev)
-    scal13, slopes, _, _ = overlap_table(*table_args(cs, fr, plen0, started0))
-    k2 = (x_long, x_short, scal13, slopes, pwr0, cs.n0, cs.n1)
-    (o_k, p_k), (o_r, p_r) = (overlap_kernel.overlap_i16(*k2),
-                              overlap_kernel.overlap_i16_ref(*k2))
+    table = table_args(cs, fr, plen0, started0)
+    scal13, slopes, _, _ = overlap_table(*table)
+    tail = (scal13, slopes, pwr0, cs.n0, cs.n1)
+    ok = overlap_kernel
+    k2 = {"overlap": (ok.overlap_i16(x_long, x_short, *tail),
+                      ok.overlap_i16_ref(x_long, x_short, *tail))}
+    if split:
+        u, v = dct4_split_uv_from_cd(pairs["floor_cd"][1], cs.n1)
+        k2["overlap_split"] = (ok.overlap_i16_split(u, v, x_short, *tail),
+                               ok.overlap_i16_split_ref(u, v, x_short, *tail))
+    for label, la, sa, ct_in in audio_forms(cs, want, table[0].reshape(-1)):
+        k2[f"overlap_audio {label}"] = (
+            ok.overlap_i16_audio(la, sa, *tail, ct_in),
+            ok.overlap_i16_audio_ref(la, sa, *tail, ct_in))
     torch.cuda.synchronize()
     if not _same_bits(pairs["floor_flat"][0], pairs["floor"][0].permute(1, 0, 2)):
         raise AssertionError(f"K1 flat != K1 channel-major transposed ({what})")
@@ -188,13 +260,17 @@ def check_at(cs, s_, t_, seed, rng, err: dict, what: str) -> None:
             raise AssertionError(f"{name} kernel != plain ({what}): max |d| {d}")
         err[name] = max(err[name], d)
         line.append(f"{name} {d}")
-    d2 = max(float((o_k.int() - o_r.int()).abs().max()),
-             float((p_k - p_r).abs().max()))
-    if not (torch.equal(o_k, o_r) and _same_bits(p_k, p_r)):
-        raise AssertionError(f"overlap kernel != plain ({what}): max |d| {d2}")
-    err["overlap"] = max(err["overlap"], d2)
+    for name, ((o_k, p_k), (o_r, p_r)) in k2.items():
+        d2 = max(float((o_k.int() - o_r.int()).abs().max()),
+                 float((p_k - p_r).abs().max()))
+        if not (torch.equal(o_k, o_r) and _same_bits(p_k, p_r)):
+            raise AssertionError(f"{name} kernel != plain ({what}): "
+                                 f"max |d| {d2}")
+        key = name.split(" ")[0]
+        err[key] = max(err[key], d2)
+        line.append(f"{name} {d2}")
     print(f"kernel vs plain, {what}: max|d| " + ", ".join(line)
-          + f", overlap {d2} (bit-identical)")
+          + " (bit-identical)")
 
 
 def geometry_setup(n0, n1, C, w_eff, dev):
@@ -213,7 +289,8 @@ def geometry_setup(n0, n1, C, w_eff, dev):
 def check_kernels(cs, dev, rng) -> dict:
     """Every kernel vs its plain version on the card: headline shapes, an
     odd T, the crafted geometries, and K3 at WIDE_C channels."""
-    err = dict.fromkeys(("floor", "floor_flat", "synth", "overlap"), 0.0)
+    err = dict.fromkeys(("floor", "floor_flat", "floor_cd", "synth", "overlap",
+                         "overlap_split", "overlap_audio"), 0.0)
     check_at(cs, S, T, 3, rng, err, f"S={S} T={T}")
     check_at(cs, ODD_S, ODD_T, 5, rng, err, f"S={ODD_S} T={ODD_T}")
     for i, geo in enumerate(GEOMETRIES):
@@ -235,27 +312,54 @@ def check_kernels(cs, dev, rng) -> dict:
     return err
 
 
+#: each kernel form's launch count: (module, attribute)
+COUNTERS = {"floor": (floor_kernel, "LAUNCHES"),
+            "floor_flat": (floor_kernel, "LAUNCHES_FLAT"),
+            "floor_cd": (floor_kernel, "LAUNCHES_CD"),
+            "overlap": (overlap_kernel, "LAUNCHES"),
+            "overlap_split": (overlap_kernel, "LAUNCHES_SPLIT"),
+            "overlap_audio": (overlap_kernel, "LAUNCHES_AUDIO"),
+            "synth": (synth_kernel, "LAUNCHES")}
+
+
 def launches() -> dict:
-    return {"floor": floor_kernel.LAUNCHES,
-            "floor_flat": floor_kernel.LAUNCHES_FLAT,
-            "overlap": overlap_kernel.LAUNCHES,
-            "synth": synth_kernel.LAUNCHES}
+    return {k: getattr(m, a) for k, (m, a) in COUNTERS.items()}
 
 
 def no_prep(cs, frs):
     return frs
 
 
-def run_path(label, cs, frs, carry0, with_i16, expect: dict, prep=no_prep):
+@contextlib.contextmanager
+def split_transform(on: bool = True):
+    """``USE_DCT4_SPLIT`` set for the block (for the card's run and the
+    CPU anchor alike)."""
+    old = imdct.USE_DCT4_SPLIT
+    imdct.USE_DCT4_SPLIT = on
+    try:
+        yield
+    finally:
+        imdct.USE_DCT4_SPLIT = old
+
+
+def caller_imdct(spectra, bf, m0, m1):
+    """A caller-supplied IMDCT, as the reference's tensor-parallel decode
+    passes one: the stock transform through another function, so the
+    chunk takes the caller-IMDCT route (generic stages, K2's audio form)."""
+    return imdct.imdct_batch(spectra, bf, m0, m1)
+
+
+def run_path(label, cs, frs, carry0, with_i16, expect: dict, prep=no_prep,
+             **kw):
     """Drive one path -- ``prep`` (e.g. ``precompute_brackets``), then
-    ``decode_chunks_scan`` -- with every launch count set to 0 just before
-    and read just after; the counts must equal ``expect`` (kernel ->
-    launches, the others 0)."""
+    ``decode_chunks_scan`` (``kw``: e.g. a caller's ``imdct``) -- with
+    every launch count set to 0 just before and read just after; the
+    counts must equal ``expect`` (kernel -> launches, the others 0)."""
     torch.cuda.synchronize()
-    floor_kernel.LAUNCHES = floor_kernel.LAUNCHES_FLAT = 0
-    overlap_kernel.LAUNCHES = synth_kernel.LAUNCHES = 0
+    for m, a in COUNTERS.values():
+        setattr(m, a, 0)
     (outs, lens), carry = decode_chunks_scan(cs, prep(cs, frs), carry0,
-                                             with_i16=with_i16)
+                                             with_i16=with_i16, **kw)
     got = launches()
     torch.cuda.synchronize()
     want = dict.fromkeys(got, 0) | expect
@@ -277,10 +381,15 @@ def run_path(label, cs, frs, carry0, with_i16, expect: dict, prep=no_prep):
 
 def spectra_bound(cs, fr) -> float:
     """How far two evaluations of a chunk's GEMM output may differ: the
-    fp32 sum-order bound of its spectra, plus for floor 0 FLOOR0_RTOL of
-    their largest row sum (the curves differ by that much)."""
+    fp32 sum-order bound of its spectra (with the split also of the split
+    GEMMs' input (c || d), bit-identical on the card and the CPU), plus for
+    floor 0 FLOOR0_RTOL of their largest row sum (the curves differ by
+    that much)."""
     spectra, _, _ = synthesize_spectra_tapped(cs, fr)
     bound = sum_order_bound(spectra)
+    if split_ok(cs):
+        cd = torch.cat(split_butterfly(spectra.permute(1, 0, 2), cs.n1), -1)
+        bound = max(bound, sum_order_bound(cd))
     if cs.has_floor0:
         bound += FLOOR0_RTOL * float(spectra.abs().to(torch.float64)
                                      .sum(-1).max())
@@ -288,20 +397,21 @@ def spectra_bound(cs, fr) -> float:
 
 
 def anchor(label, cs, headers, fr_np, outs, out_lens, with_i16,
-           max_lsb: int = 1, prep=None) -> None:
+           max_lsb: int = 1, prep=None, **kw) -> None:
     """The card's first chunks of a few streams against the port's plain
     path on the CPU: i16 within ``max_lsb`` or f32 within 2 x the GEMM
     bound + 2 ulp, out_len exact, the carry within the GEMM bound and
-    plen/started exact. ``prep`` adds per-setup entries to the frames."""
+    plen/started exact. ``prep`` adds per-setup entries to the frames;
+    ``kw`` goes to both decodes."""
     prep = prep or no_prep
-    cs_cpu = compile_setup(*headers)
+    cs_cpu = compile_setup(*headers, device="cpu")
     sub = {k: torch.from_numpy(np.ascontiguousarray(
         np.broadcast_to(v[:ANCHOR_S], (ANCHOR_N,) + v[:ANCHOR_S].shape)))
         for k, v in fr_np.items()}
     C, W = cs.channels, cs.n1 // 2
     (c_out, c_len), c_carry = decode_chunks_scan(
-        cs_cpu, prep(cs_cpu, sub), init_window_carry(C, W, ANCHOR_S),
-        with_i16=with_i16)
+        cs_cpu, prep(cs_cpu, sub), init_window_carry(C, W, ANCHOR_S, "cpu"),
+        with_i16=with_i16, **kw)
     bound = spectra_bound(cs_cpu, {k: v[0] for k, v in sub.items()})
     g_out = outs[:ANCHOR_N, :ANCHOR_S].cpu()
     if with_i16:
@@ -319,7 +429,8 @@ def anchor(label, cs, headers, fr_np, outs, out_lens, with_i16,
                              f"out_len differs")
     (_, _), g_carry = decode_chunks_scan(
         cs, prep(cs, {k: v.to(cs.device) for k, v in sub.items()}),
-        init_window_carry(C, W, ANCHOR_S, cs.device), with_i16=with_i16)
+        init_window_carry(C, W, ANCHOR_S, cs.device), with_i16=with_i16,
+        **kw)
     dpwr = float((g_carry[0].cpu() - c_carry[0]).abs().max())
     if dpwr > bound or not all(torch.equal(g.cpu(), c)
                                for g, c in zip(g_carry[1:], c_carry[1:])):
@@ -331,12 +442,12 @@ def anchor(label, cs, headers, fr_np, outs, out_lens, with_i16,
 
 
 def path_rate(cs, frs, carry0, with_i16, plain: bool, reps: int,
-              prep=no_prep):
+              prep=no_prep, **kw):
     """(x_realtime, packets/s, ms per chunk) of ``prep`` then
     decode_chunks_scan (frames in, PCM out), median of ``reps`` timed
     calls after one warm-up call."""
     (_, lens), _ = decode_chunks_scan(cs, prep(cs, frs), carry0,
-                                      with_i16=with_i16, plain=plain)
+                                      with_i16=with_i16, plain=plain, **kw)
     torch.cuda.synchronize()
     samples = int(lens.sum())  # per-channel samples of the call
     n_, s_, t_ = frs["mode"].shape
@@ -344,7 +455,7 @@ def path_rate(cs, frs, carry0, with_i16, plain: bool, reps: int,
     for _ in range(reps):
         t0 = time.perf_counter()
         decode_chunks_scan(cs, prep(cs, frs), carry0, with_i16=with_i16,
-                           plain=plain)
+                           plain=plain, **kw)
         torch.cuda.synchronize()
         dts.append(time.perf_counter() - t0)
     dt = statistics.median(dts)
@@ -393,14 +504,14 @@ def stage_device_ms(fn, reps: int = 5) -> float | None:
 
 
 def profile_path(label, cs, frs, carry0, with_i16, top: int = 8,
-                 prep=no_prep) -> None:
+                 prep=no_prep, **kw) -> None:
     """One call of a path under the profiler: the device's busy share of
     the call's wall time (union of device activity intervals) and device
     ms per chunk of the largest ops."""
     n_ = frs["mode"].shape[0]
     (t0, t1), dev = device_profile(
         lambda: decode_chunks_scan(cs, prep(cs, frs), carry0,
-                                   with_i16=with_i16))
+                                   with_i16=with_i16, **kw))
     if not dev:
         print(f"profile {label}: the profiler recorded no device activity "
               "(busy share not measured)")
@@ -519,6 +630,44 @@ def main() -> None:
         decoder.USE_FUSED_SYNTH_KERNEL = False
     torch.cuda.empty_cache()
 
+    # ---- 4b. the Wang-split paths and a caller-supplied IMDCT ----
+    late_rates = {}  # label -> (kernels, plain) path rates
+    with split_transform():
+        if not split_ok(cs):
+            raise AssertionError("the flagship setup fails the split's "
+                                 "conditions")
+        outs, lens, got = run_path("i16 split", cs, frs_new, carry0, True,
+                                   {"floor_cd": N_NEW,
+                                    "overlap_split": N_NEW})
+        anchor("i16 split", cs, headers, fr_np, outs, lens, True)
+        new_launches |= {k: got[k] for k in ("floor_cd", "overlap_split")}
+        del outs
+        hdr = synthetic_headers(per_mode_coupling=True)
+        cs_g = compile_setup(*hdr, device=dev)
+        g_np = synthetic_frames(cs_g, T=T, S=S, seed=3)
+        g_frs = expand(to_dev(g_np, dev), N_NEW)
+        outs, lens, _ = run_path("i16 split, generic", cs_g, g_frs, carry0,
+                                 True, {"overlap_split": N_NEW})
+        anchor("i16 split, generic", cs_g, hdr, g_np, outs, lens, True)
+        del outs
+        for label, cs_p, frs_p in (("i16 split", cs, frs_new),
+                                   ("i16 split, generic", cs_g, g_frs)):
+            late_rates[label] = (
+                path_rate(cs_p, frs_p, carry0, True, False, 3),
+                path_rate(cs_p, frs_p, carry0, True, True, 2))
+            profile_path(label, cs_p, frs_p, carry0, True)
+    own = {"imdct": caller_imdct}
+    outs, lens, got = run_path("i16 caller IMDCT", cs, frs_new, carry0, True,
+                               {"overlap_audio": N_NEW}, **own)
+    anchor("i16 caller IMDCT", cs, headers, fr_np, outs, lens, True, **own)
+    new_launches["overlap_audio"] = got["overlap_audio"]
+    del outs
+    late_rates["i16 caller IMDCT"] = (
+        path_rate(cs, frs_new, carry0, True, False, 3, **own),
+        path_rate(cs, frs_new, carry0, True, True, 2, **own))
+    profile_path("i16 caller IMDCT", cs, frs_new, carry0, True, **own)
+    torch.cuda.empty_cache()
+
     # ---- 5. timing: kernels, stages, paths ----
     k1, spectra, table, k2 = stage_operands(cs, fr0)
     k3 = k3_operands(cs, fr0)
@@ -538,7 +687,47 @@ def main() -> None:
         "overlap": cuda_ms(lambda: overlap_kernel.overlap_i16(*k2), 20),
         "overlap_plain": cuda_ms(lambda: overlap_kernel.overlap_i16_ref(*k2), 5),
     }
-    del k3
+    # the new forms on their paths' operands: K1 cd_n, K2 on the split
+    # GEMMs' (U, V), K2 on a caller's (pre-selected [rows, C, n1]) audio
+    cd_n = cs.n1 // 2
+    cd = floor_kernel.floor_spectra(*k1, *xs_args, cd_n=cd_n)
+    k2_split = (*dct4_split_uv_from_cd(cd, cs.n1), *k2[1:])
+    bf = table[0].reshape(-1)
+    k2_audio = (caller_imdct(spectra.permute(1, 0, 2), bf, cs.imdct_m0,
+                             cs.imdct_m1), None, *k2[2:], False)
+    times |= {
+        "floor_cd": cuda_ms(lambda: floor_kernel.floor_spectra(
+            *k1, *xs_args, cd_n=cd_n), 20),
+        "floor_cd_plain": cuda_ms(lambda: floor_kernel.floor_spectra_ref(
+            *k1, *ref_args, cd_n=cd_n), 5),
+        "overlap_split": cuda_ms(
+            lambda: overlap_kernel.overlap_i16_split(*k2_split), 20),
+        "overlap_split_plain": cuda_ms(
+            lambda: overlap_kernel.overlap_i16_split_ref(*k2_split), 5),
+        "overlap_audio": cuda_ms(
+            lambda: overlap_kernel.overlap_i16_audio(*k2_audio), 20),
+        "overlap_audio_plain": cuda_ms(
+            lambda: overlap_kernel.overlap_i16_audio_ref(*k2_audio), 5),
+    }
+    # each kernel's bound from this run's operands: (ops, inputs, outputs)
+    o_i16, o_pwr = overlap_kernel.overlap_i16(*k2)
+    spec_flat = floor_kernel.floor_spectra(*k1, *xs_args, ct_out=False)
+    work = {
+        "floor": (spectra, k1 + (cs.f1_xs,), (spectra,)),
+        "floor_flat": (spec_flat, k1 + (cs.f1_xs,), (spec_flat,)),
+        "floor_cd": (cd, k1 + (cs.f1_xs,), (cd,)),
+        "synth": (spectra, k3[:3], (spectra,)),
+        "overlap": (o_i16, k2[:5], (o_i16, o_pwr)),
+        "overlap_split": (o_i16, k2_split[:6], (o_i16, o_pwr)),
+        "overlap_audio": (o_i16, k2_audio[:5], (o_i16, o_pwr)),
+    }
+    bounds = {k: bound_of(OPS[k] * e.numel(), ins, outs)
+              for k, (e, ins, outs) in work.items()}
+    del k3, work, spec_flat
+    print("bounds (ms at {:.2e} B/s, {:.2e} FLOP/s FP32): ".format(
+        HBM_BYTES_PER_S, FP32_FLOP_PER_S) + ", ".join(
+        f"{k} {b:.4f} ({by})" for k, (b, by) in bounds.items())
+        + f" | card: {card}")
     stages = {
         "floor_prep": lambda: floor_kernel_inputs(cs, fr0),
         "floor_kernel": lambda: floor_kernel.floor_spectra(*k1, *xs_args),
@@ -547,18 +736,31 @@ def main() -> None:
         "overlap_table": lambda: overlap_table(*table),
         "overlap_kernel": lambda: overlap_kernel.overlap_i16(*k2),
     }
+    head_k = cs.dct4_m0.shape[0]
+    split_stages = {
+        "floor_kernel_cd": lambda: floor_kernel.floor_spectra(
+            *k1, *xs_args, cd_n=cd_n),
+        "split_gemms": lambda: dct4_split_uv_from_cd(cd, cs.n1),
+        "short_gemm": lambda: torch.matmul(
+            split_cd_head(cd, cs.n1, head_k), cs.dct4_m0),
+        "overlap_kernel_split": lambda: overlap_kernel.overlap_i16_split(
+            *k2_split),
+    }
     stages = {k: stage_device_ms(fn) for k, fn in stages.items()}
+    split_stages = {k: stage_device_ms(fn) for k, fn in split_stages.items()}
     fast = path_rate(cs, frs, carry0, True, False, 5)
     plain = path_rate(cs, frs, carry0, True, True, 3)
     print("timing (ms per call, headline shapes): " + ", ".join(
         f"{k} {v:.4f}" for k, v in times.items()) + f" | card: {card}")
-    if None in stages.values():
-        print("stages: the profiler recorded no device activity (not measured)")
-    else:
-        print("stages (device ms per chunk, torch.profiler): " + ", ".join(
-            f"{k} {v:.4f}" for k, v in stages.items())
-            + f", sum {sum(stages.values()):.4f} of a {fast[2]:.4f} ms chunk"
-            f" | card: {card}")
+    for label, st in (("stages", stages), ("split stages", split_stages)):
+        if None in st.values():
+            print(f"{label}: the profiler recorded no device activity (not "
+                  "measured)")
+        else:
+            print(f"{label} (device ms per chunk, torch.profiler): "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in st.items())
+                  + f", sum {sum(st.values()):.4f} | card: {card}")
+    print(f"main path chunk: {fast[2]:.4f} ms | card: {card}")
 
     def rate_line(label, kern, pl, n_):
         print(f"{label}: kernels {kern[0]:.1f} x_realtime ({kern[1]:.1f} "
@@ -572,35 +774,39 @@ def main() -> None:
                                              False, 3),
                   path_rate(cs_p, frs_p, carry0, with_i16, True, 2), N_NEW)
     rate_line("path K3 i16 (precompute_brackets timed in)", *k3_rate, N_NEW)
+    for label, rates in late_rates.items():
+        rate_line(f"path {label}", *rates, N_NEW)
 
     # ---- 6. profile of one call of each path ----
     profile_path("i16 main", cs, frs, carry0, True)
     for label, (cs_p, frs_p, with_i16) in new_paths.items():
         profile_path(label, cs_p, frs_p, carry0, with_i16, top=5)
 
-    kernels = [
-        {"name": "floor_spectra", "route": "cuda",
-         "source": "lewton_tpu_torch/csrc/floor_kernel.cu",
-         "replaces": "lewton_tpu/ops/floor_kernel.py:88",
-         "launches": main_launches["floor"], "max_abs_err": err["floor"],
-         "ms": times["floor"], "plain_ms": times["floor_plain"]},
-        {"name": "overlap_i16", "route": "cuda",
-         "source": "lewton_tpu_torch/csrc/overlap_kernel.cu",
-         "replaces": "lewton_tpu/ops/overlap_kernel.py:323",
-         "launches": main_launches["overlap"], "max_abs_err": err["overlap"],
-         "ms": times["overlap"], "plain_ms": times["overlap_plain"]},
-        {"name": "floor_spectra_flat", "route": "cuda",
-         "source": "lewton_tpu_torch/csrc/floor_kernel.cu",
-         "replaces": "lewton_tpu/ops/floor_kernel.py:88",
-         "launches": new_launches["floor_flat"],
-         "max_abs_err": err["floor_flat"],
-         "ms": times["floor_flat"], "plain_ms": times["floor_flat_plain"]},
-        {"name": "fused_floor_couple", "route": "cuda",
-         "source": "lewton_tpu_torch/csrc/synth_kernel.cu",
-         "replaces": "lewton_tpu/ops/synth_kernel.py:36",
-         "launches": new_launches["synth"], "max_abs_err": err["synth"],
-         "ms": times["synth"], "plain_ms": times["synth_plain"]},
-    ]
+    kernels = []
+    for key, kname, src, replaces, n_launch in (
+            ("floor", "floor_spectra", "floor_kernel.cu", "floor_kernel.py:88",
+             main_launches["floor"]),
+            ("overlap", "overlap_i16", "overlap_kernel.cu",
+             "overlap_kernel.py:323", main_launches["overlap"]),
+            ("floor_flat", "floor_spectra_flat", "floor_kernel.cu",
+             "floor_kernel.py:194", new_launches["floor_flat"]),
+            ("synth", "fused_floor_couple", "synth_kernel.cu",
+             "synth_kernel.py:36", new_launches["synth"]),
+            ("floor_cd", "floor_spectra_cd", "floor_kernel.cu",
+             "floor_kernel.py:167", new_launches["floor_cd"]),
+            ("overlap_split", "overlap_i16_split", "overlap_kernel.cu",
+             "overlap_kernel.py:353", new_launches["overlap_split"]),
+            ("overlap_audio", "overlap_i16_audio", "overlap_kernel.cu",
+             "overlap_kernel.py:110", new_launches["overlap_audio"])):
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": f"lewton_tpu_torch/csrc/{src}",
+            "replaces": f"lewton_tpu/ops/{replaces}",
+            "launches": n_launch, "max_abs_err": err[key],
+            "ms": times[key], "plain_ms": times[f"{key}_plain"],
+            "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
+            # no single PyTorch call computes any of these functions
+            "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,18 +1,22 @@
 """lewton_tpu_torch — the PyTorch + CUDA port of lewton_tpu's device half.
 
-The port runs the i16 synthesis path (floor spectra -> half-width DCT-IV
-GEMM -> windowed overlap-add + i16) on an NVIDIA Hopper card through two
-hand-written CUDA kernels (``csrc/``), with a plain PyTorch version of each
-kernel beside it for CPU runs and for comparison on the card. It needs
-only torch and numpy: nothing here imports JAX or ``lewton_tpu``. The
-constant tables, header records and synthetic frames it reads are its own
-numpy copies (``tables.py``, ``header.py``, ``testing.py``), which the
-tests hold equal to the reference's; headers parsed by ``lewton_tpu``'s
-bitstream layer may be passed to ``compile_setup`` as they are.
+The port runs the reference's per-chunk decode (floor spectra -> IMDCT
+GEMMs -> windowed overlap-add, i16 or f32) on an NVIDIA Hopper card
+through hand-written CUDA kernels (``csrc/``: K1 floor spectra, K2
+overlap-add + i16, K3 fused floor render), with a plain PyTorch version of
+each kernel beside it for CPU runs and for comparison on the card. Its
+entry points put tensors on the card unless the caller names another
+device. It needs only torch and numpy: nothing here imports JAX or
+``lewton_tpu``. The constant tables, header records and synthetic frames
+it reads are its own numpy copies (``tables.py``, ``header.py``,
+``testing.py``), which the tests hold equal to the reference's; headers
+parsed by ``lewton_tpu``'s bitstream layer may be passed to
+``compile_setup`` as they are.
 
 Layout mirrors the reference: ``models/decoder.py`` (setup tables and the
-per-chunk core), ``ops/`` (floor numerics, floor kernel, DCT-IV GEMM,
-overlap scalar table, overlap kernel), ``parallel/batch.py`` (chunk loop).
+per-chunk core), ``ops/`` (coupling, floor numerics, floor and synth
+kernels, IMDCT and DCT-IV GEMMs with the Wang split, overlap scalar table,
+overlap kernel), ``parallel/batch.py`` (chunk loop).
 
 Importing the package pins full-fp32 GEMMs: TF32 keeps a 10-bit mantissa,
 which is in the class of shortened-mantissa GEMMs that fail the +/-2 LSB

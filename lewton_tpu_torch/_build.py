@@ -40,7 +40,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int  # pointers (and the stream), ints
 _SIGNATURES = {
     "lt_floor_spectra": [_P, _P, _I, _P, _P, _P] + [_I] * 6 + [_P] * 2
     + [_I, _P],
+    "lt_floor_spectra_cd": [_P, _P, _I] + [_P] * 4 + [_I] * 7 + [_P] * 3,
     "lt_overlap_i16": [_P] * 7 + [_I] * 5 + [_P],
+    "lt_overlap_i16_split": [_P] * 8 + [_I] * 5 + [_P],
+    "lt_overlap_i16_audio": [_P] * 7 + [_I] * 6 + [_P],
     "lt_fused_floor_couple": [_P] * 4 + [_I] * 4 + [_P] * 3,
 }
 

@@ -8,7 +8,7 @@ stream axis in place of ``vmap``. Setups in the floor kernel's gate
 flat residue) run
 
     i16:  floor kernel K1 (channel-major) -> half-width DCT-IV GEMM
-          -> overlap kernel K2
+          -> overlap kernel K2 (X form)
     f32:  floor kernel K1 (flat) -> IMDCT GEMM -> f32 overlap-add
 
 and every other setup (floor 0, per-mode coupling, more channels) runs the
@@ -17,8 +17,13 @@ same GEMMs and tails, as the reference does on the TPU. With
 ``USE_FUSED_SYNTH_KERNEL``, floor-1 setups with static coupling outside
 K1's gate -- frames that carry ``f1_brackets`` (:func:`precompute_brackets`),
 more than 8 channels -- go through K3. :func:`synthesis_route` makes that
-choice once per chunk. ``compact_cap`` packs the f32
-tail's PCM into one i16 buffer per stream; ``with_taps`` returns the stage
+choice once per chunk. With ``ops.imdct.USE_DCT4_SPLIT`` (:func:`split_ok`)
+the i16 path's long DCT-IV goes through the Wang split: K1 emits the
+rotated pair (c || d) (``cd_n``), two half-size GEMMs give (U, V), and K2's
+split form rebuilds X from them; on the other routes the rotation is plain
+torch ops. A caller-supplied ``imdct`` takes the generic stages and K2's
+audio form (:func:`finish_stream`). ``compact_cap`` packs the f32 tail's
+PCM into one i16 buffer per stream; ``with_taps`` returns the stage
 intermediates.
 
 The reference's setup helpers live in modules that import JAX, so the small
@@ -37,12 +42,14 @@ import numpy as np
 import torch
 
 from ..header import IdentHeader, SetupHeader
+from ..ops import imdct as imdct_mod
 from ..ops.coupling import inverse_coupling_batch, inverse_coupling_static
 from ..ops.floor_curve import (BIG_X, floor0_curve_batch, floor1_brackets_mxu,
                                floor1_render, floor1_step_matrix,
                                floor1_telescopes)
 from ..ops.floor_kernel import MAX_CHANNELS, floor_spectra, floor_spectra_ref
-from ..ops.imdct import dct4_batch_parts_ct, imdct_batch
+from ..ops.imdct import (dct4_batch_parts_ct, dct4_split_uv_ct,
+                         dct4_split_uv_from_cd, imdct_batch, split_cd_head)
 from ..ops.synth_kernel import fused_floor_couple, fused_floor_couple_ref
 from ..ops.windowing import (compact_i16, overlap_add_batch,
                              overlap_add_i16_kernel_batch)
@@ -51,7 +58,8 @@ from ..tables import bark_cos_omega, imdct_matrix, window_slope
 __all__ = ["CompiledSetup", "compile_setup", "from_jax_setup",
            "floor_kernel_inputs", "floor_stage", "floor_kernel_ok",
            "synthesis_route", "precompute_brackets", "synthesize_spectra_tapped",
-           "synthesize_audio_tapped", "decode_frames_core", "decode_frames",
+           "synthesize_audio_tapped", "synthesize_audio", "finish_stream",
+           "split_ok", "decode_frames_core", "decode_frames",
            "USE_FUSED_SYNTH_KERNEL"]
 
 #: opt-in, as in the reference (decoder.py:61): floor-1 render + coupling +
@@ -115,10 +123,12 @@ class CompiledSetup:
         return self.f1_xs.device
 
 
-def from_jax_setup(leaves: dict, static: dict, device="cpu") -> CompiledSetup:
+def from_jax_setup(leaves: dict, static: dict,
+                   device="cuda") -> CompiledSetup:
     """Build the torch setup from the reference's setup carried across as
     numpy arrays (``leaves``: every name in ``_leaf_names``) and Python
-    values (``static``: every name in ``_static_names``)."""
+    values (``static``: every name in ``_static_names``), on ``device``
+    (the card unless the caller names another)."""
     return CompiledSetup(
         **{k: static[k] for k in CompiledSetup._static_names},
         **{k: torch.tensor(np.asarray(leaves[k]), device=device)
@@ -159,9 +169,10 @@ def _dct4_np(m: np.ndarray) -> np.ndarray:
 
 
 def compile_setup(ident: IdentHeader, setup: SetupHeader,
-                  device="cpu") -> CompiledSetup:
-    """Compile the decoded setup header into stacked tables on ``device``
-    (numpy port of lewton_tpu.models.decoder.compile_setup)."""
+                  device="cuda") -> CompiledSetup:
+    """Compile the decoded setup header into stacked tables on ``device``,
+    the card unless the caller names another (numpy port of
+    lewton_tpu.models.decoder.compile_setup)."""
     C = ident.channels
     n0, n1 = ident.bs0, ident.bs1
     W = n1 // 2
@@ -287,16 +298,17 @@ def floor_kernel_inputs(cs: CompiledSetup, fr: dict):
 
 
 def floor_stage(cs: CompiledSetup, fr: dict, plain: bool = False,
-                ct_out: bool = True):
+                ct_out: bool = True, cd_n: int = 0):
     """Spectra f32 [C, S*T, w_eff] (``ct_out``) or [S*T, C, w_eff] of
-    frames [S, T, ...]: the floor kernel (its plain version with
+    frames [S, T, ...], or with ``cd_n`` the Wang split's rotated pair
+    (c || d) [C, S*T, cd_n]: the floor kernel (its plain version with
     ``plain``, or on the CPU)."""
     tele, residue, scal = floor_kernel_inputs(cs, fr)
     if plain:
         return floor_spectra_ref(tele, residue, scal, cs.f1_step,
-                                 cs.static_coupling, ct_out)
+                                 cs.static_coupling, ct_out, cd_n)
     return floor_spectra(tele, residue, scal, cs.f1_xs, cs.f1_step,
-                         cs.static_coupling, ct_out)
+                         cs.static_coupling, ct_out, cd_n)
 
 
 def floor_kernel_ok(cs: CompiledSetup, fr: dict,
@@ -410,19 +422,108 @@ def synthesize_spectra_tapped(cs: CompiledSetup, fr: dict,
 
 
 def synthesize_audio_tapped(cs: CompiledSetup, fr: dict,
-                            route: str | None = None, plain: bool = False):
-    """Stages 1-4: :func:`synthesize_spectra_tapped`, then the IMDCT GEMMs.
-    Returns (audio f32 [S*T, C, n1], blockflag [S*T], taps + ``post_mdct``)."""
+                            route: str | None = None, plain: bool = False,
+                            imdct=imdct_batch):
+    """Stages 1-4: :func:`synthesize_spectra_tapped`, then ``imdct``
+    (default the IMDCT GEMMs). Returns (audio f32 [S*T, C, n1] -- or what
+    a caller's ``imdct`` returns -- blockflag [S*T], taps +
+    ``post_mdct``)."""
     spectra, bf, taps = synthesize_spectra_tapped(cs, fr, route, plain)
-    audio = imdct_batch(spectra, bf, cs.imdct_m0, cs.imdct_m1)
+    audio = imdct(spectra, bf, cs.imdct_m0, cs.imdct_m1)
     taps["post_mdct"] = audio
     return audio, bf, taps
+
+
+def synthesize_audio(cs: CompiledSetup, fr: dict, imdct=imdct_batch):
+    """The per-packet synthesis prefix (coupling, floors, curve x residue,
+    IMDCT) of frames [S, T, ...] over the flattened (stream, packet) axis
+    (lewton_tpu.models.decoder.synthesize_audio). A caller's ``imdct``
+    (same signature as :func:`imdct_batch`) turns K1 and K3 off, as in the
+    reference. Returns (audio, blockflag [S*T])."""
+    route = synthesis_route(cs, fr, allow_fused=imdct is imdct_batch)
+    audio, bf, _ = synthesize_audio_tapped(cs, fr, route, imdct=imdct)
+    return audio, bf
+
+
+def finish_stream(cs: CompiledSetup, audio, bf, fr: dict, carry,
+                  with_i16: bool = False, compact_cap: int | None = None,
+                  plain: bool = False, out=None):
+    """The tail of a chunk after the IMDCT (lewton_tpu.models.decoder.
+    finish_stream, with a stream axis): audio f32 [S*T, C, n1] (short
+    blocks in [:n0]) or a (long [S*T, C, n1], short [S*T, C, n0]) pair of
+    un-selected outputs, bf [S*T], frames [S, T, ...]. With ``with_i16``
+    (no ``compact_cap``) the overlap kernel's audio form: ((i16
+    [S, T, C*3n1/4], out_len), new_carry); otherwise the f32 overlap-add,
+    results as :func:`decode_frames_core`'s."""
+    S, T = fr["mode"].shape
+    bf = bf.reshape(S, T)
+    if with_i16 and compact_cap is None:
+        return overlap_add_i16_kernel_batch(
+            audio, bf, fr["prev_flag"], fr["next_flag"], fr["valid"],
+            cs.slope0, cs.slope1, cs.n0, cs.n1, carry, plain=plain, out=out)
+    if isinstance(audio, tuple):
+        raise TypeError("un-selected IMDCT parts need the overlap kernel "
+                        "(with_i16 without compact_cap)")
+    if compact_cap is not None and out is not None:
+        raise ValueError("out is not taken with compact_cap")
+    (pcm, out_len), carry = overlap_add_batch(
+        audio.reshape(S, T, cs.channels, cs.n1), bf, fr["prev_flag"],
+        fr["next_flag"], fr["valid"], cs.slope0, cs.slope1, cs.n0, cs.n1,
+        carry, out=out)
+    if compact_cap is not None:
+        buf, total = compact_i16(pcm, out_len, compact_cap)
+        return (buf, total, out_len), carry
+    return (pcm, out_len), carry
+
+
+def split_ok(cs: CompiledSetup) -> bool:
+    """Whether the i16 path's long transform goes through the Wang split:
+    ``ops.imdct.USE_DCT4_SPLIT`` and the reference's own conditions
+    (decoder.py:655-656) without its TPU lane gates -- w_eff clips the
+    long GEMM little (w_eff * 8 >= 3 n1; the split has no clip) and
+    n1 >= 512."""
+    return bool(imdct_mod.USE_DCT4_SPLIT and cs.w_eff * 8 >= 3 * cs.n1
+                and cs.n1 >= 512)
+
+
+def _decode_i16(cs: CompiledSetup, fr: dict, carry, route: str, plain: bool,
+                out):
+    """The i16 path with the stock IMDCT: spectra channel-major, the
+    half-width DCT-IV (direct, or through the Wang split when
+    :func:`split_ok`), then the overlap kernel's X or split form
+    (lewton_tpu.models.decoder.decode_frames_core, :654-702). On the K1
+    route with the split, K1 emits the rotated pair (c || d) itself and
+    the short GEMM reads its head back out of it (``split_cd_head``)."""
+    n0, n1, mx0 = cs.n0, cs.n1, cs.dct4_m0
+    split = split_ok(cs)
+    if route == "k1" and split:
+        cd = floor_stage(cs, fr, plain, cd_n=n1 // 2)
+        long_x = dct4_split_uv_from_cd(cd, n1)
+        head = None if n0 == n1 else split_cd_head(cd, n1, mx0.shape[0])
+    else:
+        if route == "k1":
+            spectra_ct = floor_stage(cs, fr, plain)
+        else:
+            spectra, _, _ = synthesize_spectra_tapped(cs, fr, route, plain)
+            spectra_ct = spectra.permute(1, 0, 2).contiguous()
+        if split:
+            long_x = dct4_split_uv_ct(spectra_ct, n1)
+            head = None if n0 == n1 else spectra_ct[:, :, :mx0.shape[0]]
+        else:
+            long_x, short_x = dct4_batch_parts_ct(spectra_ct, mx0, cs.dct4_m1)
+    if split:
+        short_x = None if head is None else torch.matmul(head, mx0)
+    return overlap_add_i16_kernel_batch(
+        (long_x, short_x), cs.mode_blockflag[fr["mode"].long()],
+        fr["prev_flag"], fr["next_flag"], fr["valid"], cs.slope0, cs.slope1,
+        n0, n1, carry, ct_in=True, x_rep=True, x_split=split, plain=plain,
+        out=out)
 
 
 def decode_frames_core(cs: CompiledSetup, fr: dict, carry,
                        with_i16: bool = False, compact_cap: int | None = None,
                        with_taps: bool = False, plain: bool = False,
-                       out=None):
+                       out=None, imdct=imdct_batch):
     """Decode one chunk of T packets for S streams.
 
     fr: frame tensors with leaves [S, T, ...] (lewton_tpu's pack_frames
@@ -440,37 +541,26 @@ def decode_frames_core(cs: CompiledSetup, fr: dict, carry,
 
     ``out``, if given, is the tensor the samples are written into (i16 or
     f32, as returned; not with ``compact_cap``). With ``plain`` the
-    kernels' plain versions run in their place (on any device)."""
+    kernels' plain versions run in their place (on any device). A caller's
+    ``imdct`` (signature of :func:`imdct_batch`: spectra [S*T, C, w_eff],
+    bf, m0, m1 -> audio [S*T, C, n1] or a (long, short) pair) takes the
+    generic stages, then the overlap kernel's audio form on the i16 path,
+    as the reference routes ``imdct is not imdct_batch``."""
     S, T = fr["mode"].shape
-    route = synthesis_route(cs, fr, allow_fused=not with_taps)
-    if with_i16 and compact_cap is None and not with_taps:
-        if route == "k1":
-            spectra_ct = floor_stage(cs, fr, plain)
-        else:
-            spectra, _, _ = synthesize_spectra_tapped(cs, fr, route, plain)
-            spectra_ct = spectra.permute(1, 0, 2).contiguous()
-        audio = dct4_batch_parts_ct(spectra_ct, cs.dct4_m0, cs.dct4_m1)
-        bf = cs.mode_blockflag[fr["mode"].long()]
-        return overlap_add_i16_kernel_batch(
-            audio, bf, fr["prev_flag"], fr["next_flag"], fr["valid"],
-            cs.slope0, cs.slope1, cs.n0, cs.n1, carry, plain=plain, out=out)
+    stock = imdct is imdct_batch
+    route = synthesis_route(cs, fr, allow_fused=stock and not with_taps)
+    if with_i16 and compact_cap is None and not with_taps and stock:
+        return _decode_i16(cs, fr, carry, route, plain, out)
 
-    if compact_cap is not None and out is not None:
-        raise ValueError("decode_frames_core: out is not taken with "
-                         "compact_cap")
-    audio, bf, taps = synthesize_audio_tapped(cs, fr, route, plain)
-    (pcm, out_len), carry = overlap_add_batch(
-        audio.reshape(S, T, cs.channels, cs.n1), bf.reshape(S, T),
-        fr["prev_flag"], fr["next_flag"], fr["valid"], cs.slope0, cs.slope1,
-        cs.n0, cs.n1, carry, out=out)
+    audio, bf, taps = synthesize_audio_tapped(cs, fr, route, plain, imdct)
     if with_taps:
+        (pcm, out_len), carry = finish_stream(cs, audio, bf, fr, carry,
+                                              out=out)
         taps = {k: v.reshape((S, T) + tuple(v.shape[1:]))
                 for k, v in taps.items()}
         return (pcm, out_len, taps), carry
-    if compact_cap is not None:
-        buf, total = compact_i16(pcm, out_len, compact_cap)
-        return (buf, total, out_len), carry
-    return (pcm, out_len), carry
+    return finish_stream(cs, audio, bf, fr, carry, with_i16, compact_cap,
+                         plain, out)
 
 
 def decode_frames(cs: CompiledSetup, fr: dict, carry, with_i16: bool = False,

@@ -1,13 +1,15 @@
 """K1 — floor-1 spectra: plain torch version, CUDA kernel wrapper.
 
-Ports lewton_tpu/ops/floor_kernel.py::floor_spectra_pallas without the
-Wang split: bracket contraction of the telescopes against the setup's step
-function, exact Bresenham, inverse dB masked by ``f_used``, static inverse
-coupling, and spectra = curve x coupled residue. Two output layouts, as in
-the reference: channel-major [C, rows, W] (``ct_out``, the i16 path's
-DCT-IV GEMM input) and flat [rows, C, W] (the f32 path). The CUDA kernel is
-csrc/floor_kernel.cu; it shares its epilogue with K3
-(csrc/floor_epilogue.cuh).
+Ports lewton_tpu/ops/floor_kernel.py::floor_spectra_pallas: bracket
+contraction of the telescopes against the setup's step function, exact
+Bresenham, inverse dB masked by ``f_used``, static inverse coupling, and
+spectra = curve x coupled residue. Three output forms, as in the
+reference: channel-major [C, rows, W] (``ct_out``, the i16 path's DCT-IV
+GEMM input), flat [rows, C, W] (the f32 path) and, with ``cd_n`` = n1/2,
+the Wang split's rotated pair [C, rows, cd_n] = (c || d) of the
+channel-major spectra (the split i16 path's GEMM input,
+ops/imdct.split_butterfly). The CUDA kernels are csrc/floor_kernel.cu; they
+share their epilogue with K3 (csrc/floor_epilogue.cuh).
 
 :func:`floor_spectra` takes CPU tensors to :func:`floor_spectra_ref` and
 CUDA tensors to the kernel; it never falls back from one to the other.
@@ -25,6 +27,7 @@ from .. import _build
 from ..tables import floor1_db_four_factor
 from .coupling import inverse_coupling_static
 from .floor_curve import bresenham_idx, floor1_db_value
+from .imdct import split_butterfly, split_tables
 
 __all__ = ["floor_spectra", "floor_spectra_ref", "epilogue_args",
            "MAX_CHANNELS"]
@@ -33,6 +36,8 @@ __all__ = ["floor_spectra", "floor_spectra_ref", "epilogue_args",
 LAUNCHES = 0
 #: kernel launches made by :func:`floor_spectra`, flat layout
 LAUNCHES_FLAT = 0
+#: kernel launches made by :func:`floor_spectra`, ``cd_n`` form
+LAUNCHES_CD = 0
 
 MAX_CHANNELS = 8  # K1 keeps one register slot per channel
 MAX_STREAM_CHANNELS = 255  # a Vorbis stream's channel count is 8 bits (K3)
@@ -40,9 +45,10 @@ MAX_STEPS = 256  # Vorbis coupling steps per mapping
 
 
 def floor_spectra_ref(tele, residue, scal, step, steps,
-                      ct_out: bool = True) -> torch.Tensor:
+                      ct_out: bool = True, cd_n: int = 0) -> torch.Tensor:
     """Plain torch version: f32 spectra [C, rows, W] (``ct_out``) or
-    [rows, C, W].
+    [rows, C, W]; with ``cd_n`` (needs ``ct_out``, W <= cd_n), the split
+    pair (c || d) [C, rows, cd_n] of the channel-major spectra.
 
     tele: f32 [rows, C*4*(P+1)] packed telescopes (channel-major, then
     ex/ey/gx/gy); residue: i16|f32 [rows, C*W]; scal: f32 [rows, 1+C]
@@ -72,6 +78,8 @@ def floor_spectra_ref(tele, residue, scal, step, steps,
     res = inverse_coupling_static(
         residue.reshape(rows, C, W).to(torch.float32), steps)
     spectra = curve * res.permute(1, 0, 2)
+    if cd_n:
+        return torch.cat(split_butterfly(spectra, 2 * cd_n), -1)
     return spectra if ct_out else spectra.permute(1, 0, 2).contiguous()
 
 
@@ -104,16 +112,17 @@ def epilogue_args(steps, C: int, max_channels: int = MAX_CHANNELS):
 
 
 def floor_spectra(tele, residue, scal, xs, step, steps,
-                  ct_out: bool = True) -> torch.Tensor:
-    """Spectra f32 [C, rows, W] (``ct_out``) or [rows, C, W]: the plain
-    version for CPU tensors, the CUDA kernel for CUDA tensors. Arguments as
-    :func:`floor_spectra_ref`, plus xs: i32 [M, C, P] sorted post x (pad
-    BIG_X), from which the kernel evaluates the step function itself
-    (``step`` is not read there)."""
-    global LAUNCHES, LAUNCHES_FLAT
+                  ct_out: bool = True, cd_n: int = 0) -> torch.Tensor:
+    """Spectra f32 [C, rows, W] (``ct_out``) or [rows, C, W], or the split
+    pair [C, rows, cd_n] (``cd_n``): the plain version for CPU tensors, the
+    CUDA kernel for CUDA tensors. Arguments as :func:`floor_spectra_ref`,
+    plus xs: i32 [M, C, P] sorted post x (pad BIG_X), from which the kernel
+    evaluates the step function itself (``step`` is not read there)."""
+    global LAUNCHES, LAUNCHES_FLAT, LAUNCHES_CD
     dev = tele.device
     if dev.type == "cpu":
-        return floor_spectra_ref(tele, residue, scal, step, steps, ct_out)
+        return floor_spectra_ref(tele, residue, scal, step, steps, ct_out,
+                                 cd_n)
     if dev.type != "cuda":
         raise ValueError(f"floor_spectra: unsupported device {dev}")
     rows = tele.shape[0]
@@ -128,21 +137,34 @@ def floor_spectra(tele, residue, scal, xs, step, steps,
     check("scal", scal, torch.float32, (rows, 1 + C), dev)
     check("xs", xs, torch.int32, (M, C, P), dev)
     check("step", step, torch.float32, (C, M * (P + 1), W), dev)
-    shape = (C, rows, W) if ct_out else (rows, C, W)
+    if cd_n and (not ct_out or cd_n % 2 or cd_n < W):
+        raise ValueError(f"cd_n={cd_n}: needs ct_out, an even cd_n and "
+                         f"w_eff={W} <= cd_n")
+    shape = ((C, rows, cd_n) if cd_n else (C, rows, W) if ct_out
+             else (rows, C, W))
     out = torch.empty(shape, dtype=torch.float32, device=dev)
     if rows == 0 or W == 0:
-        return out
-    fn = _build.load_library().lt_floor_spectra
+        return out.zero_()
+    lib = _build.load_library()
+    common = (tele.data_ptr(), residue.data_ptr(),
+              int(residue.dtype == torch.int16), scal.data_ptr(),
+              xs.data_ptr())
+    host = (n_steps, ctypes.addressof(steps_arr), ctypes.addressof(db_arr))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(tele.data_ptr(), residue.data_ptr(),
-                 int(residue.dtype == torch.int16), scal.data_ptr(),
-                 xs.data_ptr(), out.data_ptr(), rows, C, W, P, M, n_steps,
-                 ctypes.addressof(steps_arr), ctypes.addressof(db_arr),
-                 int(ct_out), stream)
+        if cd_n:
+            tw = split_tables(2 * cd_n, dev)[2]
+            err = lib.lt_floor_spectra_cd(*common, tw.data_ptr(),
+                                          out.data_ptr(), rows, C, W, P, M,
+                                          cd_n, *host, stream)
+        else:
+            err = lib.lt_floor_spectra(*common, out.data_ptr(), rows, C, W,
+                                       P, M, *host, int(ct_out), stream)
     if err != 0:
         raise RuntimeError(f"floor kernel launch failed: cudaError {err}")
-    if ct_out:
+    if cd_n:
+        LAUNCHES_CD += 1
+    elif ct_out:
         LAUNCHES += 1
     else:
         LAUNCHES_FLAT += 1

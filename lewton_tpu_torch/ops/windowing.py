@@ -3,7 +3,7 @@
 Ports lewton_tpu/ops/windowing.py: ``init_window_carry`` (:57-63), the f32
 overlap-add ``overlap_add_batch`` (:66-148) as plain torch ops (XLA fused
 it in the reference; no kernel exists for it), ``compact_i16`` (:29-54),
-and the bookkeeping around the overlap kernel,
+and the bookkeeping around the overlap kernel in its three input forms,
 ``overlap_add_i16_kernel_batch`` (:151-222): the per-packet scalar table
 (13 columns, same map) and the carry's ``plen``/``started``. The reference
 runs one stream under ``vmap``; here every [T] quantity is [S, T] and the
@@ -14,15 +14,17 @@ from __future__ import annotations
 
 import torch
 
-from .overlap_kernel import overlap_i16, overlap_i16_ref
+from .overlap_kernel import (overlap_i16, overlap_i16_audio,
+                             overlap_i16_audio_ref, overlap_i16_ref,
+                             overlap_i16_split, overlap_i16_split_ref)
 
 __all__ = ["init_window_carry", "overlap_table", "overlap_add_i16_kernel_batch",
            "overlap_add_batch", "compact_i16"]
 
 
-def init_window_carry(channels: int, w: int, streams: int, device="cpu"):
-    """Fresh carry for S streams: (pwr [S, C, W] f32, plen [S] i32,
-    started [S] bool)."""
+def init_window_carry(channels: int, w: int, streams: int, device="cuda"):
+    """Fresh carry for S streams on ``device`` (the card unless the caller
+    names another): (pwr [S, C, W] f32, plen [S] i32, started [S] bool)."""
     return (torch.zeros((streams, channels, w), dtype=torch.float32,
                         device=device),
             torch.zeros((streams,), dtype=torch.int32, device=device),
@@ -202,20 +204,42 @@ def overlap_table(blockflag, prev_flag, next_flag, valid, slope0, slope1,
 
 def overlap_add_i16_kernel_batch(audio, blockflag, prev_flag, next_flag,
                                  valid, slope0, slope1, n0: int, n1: int,
-                                 carry, plain: bool = False, out=None):
-    """Overlap-add + i16 for S streams from the half-width DCT-IV outputs.
+                                 carry, ct_in: bool = False,
+                                 x_rep: bool = False, x_split: bool = False,
+                                 plain: bool = False, out=None):
+    """Overlap-add + i16 for S streams through the overlap kernel, in the
+    reference's three input forms (lewton_tpu/ops/windowing.py:151-222):
 
-    audio: (X long [C, S*T, n1/2], X short [C, S*T, n0/2] or None);
+    - ``x_split``: ((U, V), X short or None), the Wang-split halves of the
+      long DCT-IV X, [C, S*T, n1/4] each, and X short [C, S*T, n0/2];
+    - ``x_rep`` (needs ``ct_in``): (X long [C, S*T, n1/2], X short or
+      None), the half-width DCT-IV outputs;
+    - otherwise IMDCT audio [S*T, C, n1] ([C, S*T, n1] with ``ct_in``),
+      pre-selected, or a (long, short) pair of un-selected outputs (short
+      None when n0 == n1).
+
     blockflag i32, prev_flag/next_flag/valid bool: [S, T] (valid a prefix
     per stream); carry (pwr [S, C, W], plen [S], started [S]). With
-    ``plain`` the overlap kernel's plain version runs on any device.
-    ``out``: i16 [S, T, C*3n1/4] to write the samples into, or None.
-    Returns ((out i16 [S, T, C*3n1/4], out_len i32 [S, T]), new_carry)."""
+    ``plain`` the kernel's plain version runs on any device. ``out``: i16
+    [S, T, C*3n1/4] to write the samples into, or None. Returns ((out i16
+    [S, T, C*3n1/4], out_len i32 [S, T]), new_carry)."""
     pwr0, plen0, started0 = carry
     scal, slopes, out_len, new_plen = overlap_table(
         blockflag, prev_flag, next_flag, valid, slope0, slope1, n0, n1,
         plen0, started0)
-    fn = overlap_i16_ref if plain else overlap_i16
-    out, pwr_out = fn(*audio, scal, slopes, pwr0, n0, n1, out)
+    tail = (scal, slopes, pwr0, n0, n1)
+    if x_split:
+        (u, v), x_short = audio
+        fn = overlap_i16_split_ref if plain else overlap_i16_split
+        out, pwr_out = fn(u, v, x_short, *tail, out=out)
+    elif x_rep:
+        if not ct_in:
+            raise ValueError("the X form takes channel-major input (ct_in)")
+        fn = overlap_i16_ref if plain else overlap_i16
+        out, pwr_out = fn(*audio, *tail, out=out)
+    else:
+        long_a, short_a = audio if isinstance(audio, tuple) else (audio, None)
+        fn = overlap_i16_audio_ref if plain else overlap_i16_audio
+        out, pwr_out = fn(long_a, short_a, *tail, ct_in, out=out)
     _, plen_out, started_out = _carry_out(None, new_plen, valid, carry)
     return (out, out_len), (pwr_out, plen_out, started_out)

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..models.decoder import CompiledSetup, decode_frames_core
+from ..ops.imdct import imdct_batch
 
 __all__ = ["decode_chunk_batch", "decode_chunks_scan"]
 
@@ -28,11 +29,14 @@ def _chunk(frs: dict, i: int) -> dict:
 
 
 def decode_chunks_scan(cs: CompiledSetup, frs: dict, carry,
-                       with_i16: bool = False, plain: bool = False):
+                       with_i16: bool = False, plain: bool = False,
+                       imdct=imdct_batch):
     """N chunks in order: frs leaves [N, S, T, ...]. Returns ((out, out_len
     i32 [N, S, T]), final carry), out i16 [N, S, T, C*3n1/4] with
     ``with_i16``, else f32 [N, S, T, C, 3n1/4]. Each chunk's samples are
-    written into its slice of ``out``."""
+    written into its slice of ``out``. ``imdct``: passed to every chunk's
+    :func:`decode_frames_core` (a caller's transform, as the reference's
+    ``_batch_core`` passes it)."""
     N, S, T = frs["mode"].shape
     dev = frs["mode"].device
     outw = 3 * cs.n1 // 4
@@ -44,6 +48,6 @@ def decode_chunks_scan(cs: CompiledSetup, frs: dict, carry,
     for i in range(N):
         (_, out_len), carry = decode_frames_core(
             cs, _chunk(frs, i), carry, with_i16=with_i16, plain=plain,
-            out=out[i])
+            out=out[i], imdct=imdct)
         lens[i] = out_len
     return (out, lens), carry

@@ -1,9 +1,10 @@
-"""Header-derived constant tables of the i16 path (numpy).
+"""Header-derived constant tables of the synthesis paths (numpy).
 
-Copies of the functions of lewton_tpu/tables.py that ``compile_setup`` and
-the floor numerics read, so that the port runs where only torch and numpy
-are installed. tests/test_torch_setup.py holds every table here bit for bit
-against the reference's.
+Copies of the functions of lewton_tpu/tables.py that ``compile_setup``, the
+floor numerics and the Wang-split IMDCT read, so that the port runs where
+only torch and numpy are installed. tests/test_torch_setup.py and
+tests/test_torch_split.py hold every table here bit for bit against the
+reference's.
 """
 
 from __future__ import annotations
@@ -12,8 +13,8 @@ import functools
 
 import numpy as np
 
-__all__ = ["window_slope", "imdct_matrix", "bark_cos_omega",
-           "floor1_db_four_factor"]
+__all__ = ["window_slope", "imdct_matrix", "dct4_split_tables",
+           "bark_cos_omega", "floor1_db_four_factor"]
 
 # lewton_tpu.tables.floor1_db_four_factor() as f32 bit patterns: H1, H0, L1,
 # L0 (the inverse-dB table as (H1[i>>6]*H0[(i>>4)&3])*(L1[(i>>2)&3]*L0[i&3]),
@@ -56,6 +57,30 @@ def imdct_matrix(n: int) -> np.ndarray:
     j = np.arange(n, dtype=np.float64)
     m = np.cos(np.pi / (2 * n) * np.outer(2 * k + 1, 2 * j + 1 + n // 2))
     return _frozen(np.ascontiguousarray(m, dtype=np.float32))
+
+
+@functools.cache
+def dct4_split_tables(n: int) -> tuple[np.ndarray, ...]:
+    """One-level Wang split of the DCT-IV of length N = n/2 (the i16
+    path's half-width IMDCT): with theta_k = pi (2k+1) / (4N), H = N/2,
+
+        c_k = cos(theta_k) x_k + sin(theta_k) x_{N-1-k}
+        d_k = cos(theta_k) x_{N-1-k} - sin(theta_k) x_k
+        U = DCT-II_H(c),  V = DST-II_H(d)
+        X_0 = U_0;  X_{2j-1} = U_j - V_{j-1};  X_{2j} = U_j + V_{j-1};
+        X_{N-1} = -V_{H-1}
+
+    Returns (t2 [H, H], s2 [H, H], cos_tw [H], sin_tw [H]) in f32, t2/s2
+    in the GEMM's [k, j] layout, computed in float64 and rounded once."""
+    N = n // 2
+    H = N // 2
+    j = np.arange(H, dtype=np.float64)
+    k = np.arange(H, dtype=np.float64)
+    t2 = np.cos(np.pi / H * np.outer(k + 0.5, j))
+    s2 = np.sin(np.pi / H * np.outer(k + 0.5, j + 1.0))
+    th = np.pi * (2 * k + 1) / (4 * N)
+    return tuple(_frozen(np.ascontiguousarray(a, dtype=np.float32))
+                 for a in (t2, s2, np.cos(th), np.sin(th)))
 
 
 def _bark(x: np.ndarray) -> np.ndarray:

@@ -18,8 +18,11 @@ import torch
 from lewton_tpu_torch.models.decoder import (compile_setup,
                                              floor_kernel_inputs, floor_stage,
                                              precompute_brackets)
-from lewton_tpu_torch.ops import floor_kernel, overlap_kernel, synth_kernel
-from lewton_tpu_torch.ops.imdct import dct4_batch_parts_ct
+from lewton_tpu_torch.ops import (floor_kernel, imdct, overlap_kernel,
+                                  synth_kernel)
+from lewton_tpu_torch.ops.imdct import (dct4_batch_parts_ct,
+                                        dct4_split_uv_from_cd,
+                                        imdct_batch_parts_ct)
 from lewton_tpu_torch.ops.windowing import init_window_carry, overlap_table
 from lewton_tpu_torch.parallel.batch import decode_chunks_scan
 from lewton_tpu_torch.testing import (synthetic_floor0_frames,
@@ -75,6 +78,24 @@ def test_floor_kernel_matches_plain(dev, C, dtype):
     assert torch.equal(_bits(flat), _bits(got.permute(1, 0, 2)))
 
 
+@pytest.mark.parametrize("C,bs", [(2, (8, 11)), (6, (8, 11)), (1, (9, 9)),
+                                  (2, (8, 13))])
+def test_floor_kernel_cd_matches_plain(dev, C, bs):
+    """K1's cd_n form (the Wang split's rotated pair)."""
+    cs = compile_setup(*synthetic_headers(C, *bs), device=dev)
+    ops = floor_kernel_inputs(cs, _frames(cs, 3, 37, C, dev))
+    N = cs.n1 // 2
+    before = floor_kernel.LAUNCHES_CD
+    got = floor_kernel.floor_spectra(*ops, cs.f1_xs, cs.f1_step,
+                                     cs.static_coupling, cd_n=N)
+    assert floor_kernel.LAUNCHES_CD == before + 1
+    want = floor_kernel.floor_spectra_ref(*ops, cs.f1_step,
+                                          cs.static_coupling, cd_n=N)
+    torch.cuda.synchronize()
+    assert got.shape == (C, 3 * 37, N)
+    assert torch.equal(_bits(got), _bits(want))
+
+
 @pytest.mark.parametrize("C", [1, 2, 6, 10])
 def test_synth_kernel_matches_plain(dev, C):
     """K3 in registers (C <= 8) and in its wide form (C = 10)."""
@@ -122,6 +143,113 @@ def test_overlap_kernel_matches_plain(dev, bs):
     assert torch.equal(_bits(pwr_1), _bits(pwr_r))
 
 
+def _overlap_operands(cs, S, T, dev):
+    fr = _frames(cs, S, T, 7, dev)
+    g = torch.Generator().manual_seed(1)
+    pwr0 = torch.randn((S, cs.channels, cs.n1 // 2), generator=g).to(dev)
+    scal, slopes, _, _ = overlap_table(
+        cs.mode_blockflag[fr["mode"].long()], fr["prev_flag"],
+        fr["next_flag"], fr["valid"], cs.slope0, cs.slope1, cs.n0, cs.n1,
+        torch.full((S,), cs.n0 // 2, dtype=torch.int32, device=dev),
+        torch.ones(S, dtype=torch.bool, device=dev))
+    return fr, (scal, slopes, pwr0, cs.n0, cs.n1)
+
+
+@pytest.mark.parametrize("bs", [(8, 11), (9, 9), (6, 11)])
+def test_overlap_split_matches_plain(dev, bs):
+    """K2's split form on the split GEMMs' (U, V)."""
+    cs = compile_setup(*synthetic_headers(2, *bs), device=dev)
+    S, T = 3, 37
+    fr, tail = _overlap_operands(cs, S, T, dev)
+    cd = floor_stage(cs, fr, plain=True, cd_n=cs.n1 // 2)
+    u, v = (x.contiguous() for x in dct4_split_uv_from_cd(cd, cs.n1))
+    _, x_short = dct4_batch_parts_ct(floor_stage(cs, fr, plain=True),
+                                     cs.dct4_m0, cs.dct4_m1)
+    before = overlap_kernel.LAUNCHES_SPLIT
+    out, pwr = overlap_kernel.overlap_i16_split(u, v, x_short, *tail)
+    assert overlap_kernel.LAUNCHES_SPLIT == before + 1
+    out_r, pwr_r = overlap_kernel.overlap_i16_split_ref(u, v, x_short, *tail)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out_r) and torch.equal(_bits(pwr), _bits(pwr_r))
+
+
+@pytest.mark.parametrize("ct_in", [False, True])
+@pytest.mark.parametrize("selected", [False, True])
+@pytest.mark.parametrize("bs", [(8, 11), (9, 9), (6, 11)])
+def test_overlap_audio_matches_plain(dev, bs, selected, ct_in):
+    """K2's audio form: un-selected or pre-selected IMDCT output,
+    channel-major or [rows, C, n]."""
+    cs = compile_setup(*synthetic_headers(2, *bs), device=dev)
+    S, T = 3, 37
+    fr, tail = _overlap_operands(cs, S, T, dev)
+    spectra = floor_stage(cs, fr, plain=True)
+    long_a, short_a = imdct_batch_parts_ct(spectra, cs.imdct_m0, cs.imdct_m1)
+    if selected and short_a is not None:
+        bf = cs.mode_blockflag[fr["mode"].long()].reshape(1, -1, 1)
+        pad = torch.nn.functional.pad(short_a, (0, cs.n1 - cs.n0))
+        long_a, short_a = torch.where(bf == 1, long_a, pad), None
+    if not ct_in:
+        long_a, short_a = (None if a is None else a.permute(1, 0, 2).contiguous()
+                           for a in (long_a, short_a))
+    before = overlap_kernel.LAUNCHES_AUDIO
+    out, pwr = overlap_kernel.overlap_i16_audio(long_a, short_a, *tail, ct_in)
+    assert overlap_kernel.LAUNCHES_AUDIO == before + 1
+    out_r, pwr_r = overlap_kernel.overlap_i16_audio_ref(long_a, short_a, *tail,
+                                                        ct_in)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out_r) and torch.equal(_bits(pwr), _bits(pwr_r))
+
+
+@pytest.mark.parametrize("kw", [{}, {"per_mode_coupling": True}])
+def test_split_path_matches_cpu(dev, monkeypatch, kw):
+    """USE_DCT4_SPLIT on the card: K1 cd_n and K2 split_in once per chunk
+    (K2 split_in only on the generic route), within 1 LSB of the port's
+    plain path on the CPU."""
+    monkeypatch.setattr(imdct, "USE_DCT4_SPLIT", True)
+    headers = synthetic_headers(**kw)
+    cs = compile_setup(*headers, device=dev)
+    N, S, T = 2, 3, 40
+    chunks = [_frames(cs, S, T, 40 + n, dev) for n in range(N)]
+    frs = {k: torch.stack([c[k] for c in chunks]) for k in chunks[0]}
+    carry = init_window_carry(cs.channels, cs.n1 // 2, S, dev)
+    cd0, sp0 = floor_kernel.LAUNCHES_CD, overlap_kernel.LAUNCHES_SPLIT
+    (out, ln), c = decode_chunks_scan(cs, frs, carry, with_i16=True)
+    k1 = 0 if kw else N
+    assert (floor_kernel.LAUNCHES_CD - cd0,
+            overlap_kernel.LAUNCHES_SPLIT - sp0) == (k1, N)
+    cs_cpu = compile_setup(*headers, device="cpu")
+    (out_c, ln_c), _ = decode_chunks_scan(
+        cs_cpu, {k: v.cpu() for k, v in frs.items()},
+        init_window_carry(cs.channels, cs.n1 // 2, S, "cpu"), with_i16=True)
+    assert (out.cpu().int() - out_c.int()).abs().max() <= 1
+    assert torch.equal(ln.cpu(), ln_c)
+
+
+def test_caller_imdct_path_matches_cpu(dev):
+    """A caller's IMDCT on the card: the generic stages, then K2's audio
+    form once per chunk (no K1), within 1 LSB of the CPU plain path."""
+    def own(spectra, bf, m0, m1):
+        return imdct.imdct_batch(spectra, bf, m0, m1)
+
+    headers = synthetic_headers()
+    cs = compile_setup(*headers, device=dev)
+    N, S, T = 2, 3, 40
+    chunks = [_frames(cs, S, T, 50 + n, dev) for n in range(N)]
+    frs = {k: torch.stack([c[k] for c in chunks]) for k in chunks[0]}
+    k1, a0 = floor_kernel.LAUNCHES, overlap_kernel.LAUNCHES_AUDIO
+    (out, ln), _ = decode_chunks_scan(
+        cs, frs, init_window_carry(2, cs.n1 // 2, S, dev), with_i16=True,
+        imdct=own)
+    assert floor_kernel.LAUNCHES == k1
+    assert overlap_kernel.LAUNCHES_AUDIO - a0 == N
+    cs_cpu = compile_setup(*headers, device="cpu")
+    (out_c, ln_c), _ = decode_chunks_scan(
+        cs_cpu, {k: v.cpu() for k, v in frs.items()},
+        init_window_carry(2, cs.n1 // 2, S, "cpu"), with_i16=True, imdct=own)
+    assert (out.cpu().int() - out_c.int()).abs().max() <= 1
+    assert torch.equal(ln.cpu(), ln_c)
+
+
 def test_slice_runs_through_kernels(dev):
     cs = compile_setup(*synthetic_headers(2, 8, 11), device=dev)
     N, S, T = 2, 3, 40
@@ -154,10 +282,11 @@ def test_generic_i16_path_matches_cpu(dev, kw):
     (out, ln), c = decode_chunks_scan(cs, frs, carry, with_i16=True)
     assert (floor_kernel.LAUNCHES, floor_kernel.LAUNCHES_FLAT) == k1
     assert overlap_kernel.LAUNCHES - o0 == N
-    cs_cpu = compile_setup(*headers)
+    cs_cpu = compile_setup(*headers, device="cpu")
     (out_c, ln_c), c_c = decode_chunks_scan(
         cs_cpu, {k: v.cpu() for k, v in frs.items()},
-        init_window_carry(cs.channels, cs.n1 // 2, S), with_i16=True)
+        init_window_carry(cs.channels, cs.n1 // 2, S, "cpu"),
+        with_i16=True)
     assert (out.cpu().int() - out_c.int()).abs().max() <= 1
     assert torch.equal(ln.cpu(), ln_c)
     assert bool(torch.isfinite(c[0]).all())

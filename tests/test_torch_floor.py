@@ -112,7 +112,7 @@ def test_floor_spectra_ref_matches_pallas(C, steps, dtype):
         setup.mappings[0].coupling_magnitude = [m for m, _ in steps]
         setup.mappings[0].coupling_angle = [a for _, a in steps]
     jcs = jax_compile_setup(ident, setup)
-    cs = from_jax_setup(*carry_across(jcs))
+    cs = from_jax_setup(*carry_across(jcs), device="cpu")
     rng = np.random.default_rng(C)
     T = 80  # two reference row blocks, the second one padded
     fr = _frames(cs, T, rng, dtype)

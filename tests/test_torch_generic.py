@@ -130,7 +130,7 @@ def test_floor1_brackets_and_render_bit_identical(C):
     want = jfc.floor1_brackets_mxu(
         _by_mode(jcs.f1_xs, mode), jnp.asarray(fr["f1_ys"]),
         jnp.asarray(fr["f1_flags"]), jcs.f1_mult[mode], mode, jcs.f1_step)
-    cs = from_jax_setup(*carry_across(jcs))
+    cs = from_jax_setup(*carry_across(jcs), device="cpu")
     tm = torch.from_numpy(fr["mode"]).long()
     got = tfc.floor1_brackets_mxu(cs.f1_xs[tm], *_t(fr["f1_ys"], fr["f1_flags"]),
                                   cs.f1_mult[tm], tm, cs.f1_step)
@@ -277,7 +277,7 @@ def test_k1_flat_plain_matches_pallas(interpret_floor_kernel, C, steps, dtype):
     fr["residue"] = fr["residue"].astype(dtype)
     want = jdec._floor_kernel_spectra(jcs, {k: jnp.asarray(v)
                                             for k, v in fr.items()})
-    cs = from_jax_setup(*carry_across(jcs))
+    cs = from_jax_setup(*carry_across(jcs), device="cpu")
     tfr = {k: torch.from_numpy(v)[None] for k, v in fr.items()}
     got = floor_stage(cs, tfr, ct_out=False)
     assert got.shape == (80, C, cs.w_eff)

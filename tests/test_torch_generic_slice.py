@@ -127,7 +127,7 @@ def _case(name, corpus_dir=None):
 
 def _setups(ident, setup):
     jcs = jax_compile_setup(ident, setup)
-    return jcs, from_jax_setup(*carry_across(jcs))
+    return jcs, from_jax_setup(*carry_across(jcs), device="cpu")
 
 
 def _jax_carry(C, W, S):
@@ -171,7 +171,7 @@ def _compare(ident, setup, frs, with_i16):
         _jax_carry(cs.channels, W, S), with_i16=with_i16)
     tfrs = {k: torch.from_numpy(v) for k, v in frs.items()}
     (out, out_len), (pwr, plen, started) = decode_chunks_scan(
-        cs, tfrs, init_window_carry(cs.channels, W, S), with_i16=with_i16)
+        cs, tfrs, init_window_carry(cs.channels, W, S, "cpu"), with_i16=with_i16)
     bound = _pcm_bound(cs, tfrs)
     if with_i16:
         assert tuple(out.shape) == np.asarray(j_out).shape
@@ -210,7 +210,7 @@ def test_generic_streams_match_libvorbis(tmp_path, name):
     _, cs = _setups(ident, setup)
     (out, lens), _ = decode_chunks_scan(
         cs, {k: torch.from_numpy(v) for k, v in frs.items()},
-        init_window_carry(cs.channels, cs.n1 // 2, 1), with_i16=True)
+        init_window_carry(cs.channels, cs.n1 // 2, 1, "cpu"), with_i16=True)
     C, outw = cs.channels, 3 * cs.n1 // 4
     pcm = np.concatenate(
         [out[n, 0, t].numpy().reshape(C, outw)[:, :int(lens[n, 0, t])]
@@ -236,7 +236,7 @@ def test_taps_match_reference(name):
         jax_init_carry(cs.channels, W), with_taps=True)
     (out, out_len, taps), carry = decode_frames(
         cs, {k: torch.from_numpy(v) for k, v in fr.items()},
-        tuple(c[0] for c in init_window_carry(cs.channels, W, 1)),
+        tuple(c[0] for c in init_window_carry(cs.channels, W, 1, "cpu")),
         with_taps=True)
     assert sorted(taps) == sorted(j_taps)
     for k in ("residue_pre_inverse", "residue_post_inverse"):
@@ -270,7 +270,7 @@ def test_compact_cap_matches_reference(name):
         _jax_carry(cs.channels, W, S), compact_cap=cap)
     (pcm, total, out_len), _ = decode_chunk_batch(
         cs, {k: torch.from_numpy(v) for k, v in fr.items()},
-        init_window_carry(cs.channels, W, S), compact_cap=cap)
+        init_window_carry(cs.channels, W, S, "cpu"), compact_cap=cap)
     assert pcm.shape == (S, cap, cs.channels) and pcm.dtype == torch.int16
     _close_i16(j_pcm, pcm)
     assert np.array_equal(np.asarray(j_total), total.numpy())
@@ -289,7 +289,8 @@ def test_fused_synth_path_matches_reference(monkeypatch, name, with_i16):
     ident, setup, frs = _case(name)
     _, cs = _setups(ident, setup)
     tfrs = {k: torch.from_numpy(v) for k, v in frs.items()}
-    carry = init_window_carry(cs.channels, cs.n1 // 2, frs["mode"].shape[1])
+    carry = init_window_carry(cs.channels, cs.n1 // 2, frs["mode"].shape[1],
+                              "cpu")
     want = decode_chunks_scan(cs, tfrs, carry, with_i16=with_i16)
     monkeypatch.setattr(tdec, "USE_FUSED_SYNTH_KERNEL", True)
     got = decode_chunks_scan(cs, precompute_brackets(cs, tfrs), carry,
@@ -320,7 +321,7 @@ def test_synthesis_route(monkeypatch, kw, fused, brackets, allow_fused, want):
     ``_synthesize_spectra_tapped`` makes it: K1 when its gate admits the
     frames; else K3 under USE_FUSED_SYNTH_KERNEL for a floor-1 setup with
     static coupling, at any channel count; else the generic stages."""
-    cs = tcompile_setup(*ttesting.synthetic_headers(**kw))
+    cs = tcompile_setup(*ttesting.synthetic_headers(**kw), device="cpu")
     make = (ttesting.synthetic_floor0_frames if cs.has_floor0
             else ttesting.synthetic_frames)
     fr = {k: torch.from_numpy(v) for k, v in make(cs, T=4, S=2).items()}

@@ -42,7 +42,7 @@ import torch
 from lewton_tpu_torch import _build
 from lewton_tpu_torch.models import decoder
 from lewton_tpu_torch.models.decoder import compile_setup, precompute_brackets
-from lewton_tpu_torch.ops import floor_kernel, overlap_kernel, synth_kernel
+from lewton_tpu_torch.ops import floor_kernel, imdct, overlap_kernel, synth_kernel
 from lewton_tpu_torch.ops.windowing import init_window_carry
 from lewton_tpu_torch.parallel.batch import decode_chunks_scan
 from lewton_tpu_torch.testing import (synthetic_floor0_frames,
@@ -51,25 +51,41 @@ from lewton_tpu_torch.testing import (synthetic_floor0_frames,
 assert not torch.backends.cuda.matmul.allow_tf32
 assert not torch.backends.cudnn.allow_tf32
 assert torch.get_float32_matmul_precision() == "highest"
-# every path: the floor kernel's two layouts, K3, and the generic stages
-for kw, fused in (({}, False), ({}, True), ({"floor0": True}, False),
-                  ({"per_mode_coupling": True}, False)):
-    cs = compile_setup(*synthetic_headers(**kw))
+def caller_imdct(spectra, bf, m0, m1):
+    return imdct.imdct_batch(spectra, bf, m0, m1)
+
+# every path: the floor kernel's three forms, K3, the generic stages, the
+# Wang split and a caller's IMDCT (K2's three forms)
+for kw, fused, split, own in (
+        ({}, False, False, False), ({}, True, False, False),
+        ({"floor0": True}, False, False, False),
+        ({"per_mode_coupling": True}, False, False, False),
+        ({}, False, True, False), ({"per_mode_coupling": True}, False, True,
+                                   False), ({}, False, False, True)):
+    cs = compile_setup(*synthetic_headers(**kw), device="cpu")
     make = synthetic_floor0_frames if cs.has_floor0 else synthetic_frames
     frs = {k: torch.from_numpy(v)[None]
            for k, v in make(cs, T=8, S=2, seed=0).items()}
     if fused:
         frs = precompute_brackets(cs, frs)
     decoder.USE_FUSED_SYNTH_KERNEL = fused
-    carry = init_window_carry(2, cs.n1 // 2, 2)
+    imdct.USE_DCT4_SPLIT = split
+    assert decoder.split_ok(cs) == split
+    fn = caller_imdct if own else imdct.imdct_batch
+    carry = init_window_carry(2, cs.n1 // 2, 2, "cpu")
     for with_i16 in (False, True):
-        (out, ln), c = decode_chunks_scan(cs, frs, carry, with_i16=with_i16)
+        (out, ln), c = decode_chunks_scan(cs, frs, carry, with_i16=with_i16,
+                                          imdct=fn)
         (out_p, ln_p), c_p = decode_chunks_scan(cs, frs, carry,
-                                                with_i16=with_i16, plain=True)
+                                                with_i16=with_i16, plain=True,
+                                                imdct=fn)
         assert torch.equal(out, out_p) and torch.equal(ln, ln_p)
         assert all(torch.equal(a, b) for a, b in zip(c, c_p))
+imdct.USE_DCT4_SPLIT = False
 assert (floor_kernel.LAUNCHES, floor_kernel.LAUNCHES_FLAT,
-        overlap_kernel.LAUNCHES, synth_kernel.LAUNCHES) == (0, 0, 0, 0)
+        floor_kernel.LAUNCHES_CD, overlap_kernel.LAUNCHES,
+        overlap_kernel.LAUNCHES_SPLIT, overlap_kernel.LAUNCHES_AUDIO,
+        synth_kernel.LAUNCHES) == (0,) * 7
 assert _build._lib is None
 assert not any(m.split(".")[0] in REFUSED for m in sys.modules)
 print("OK", len(mods))
@@ -102,15 +118,23 @@ def test_wrappers_refuse_other_devices():
     """A tensor that is not on the CPU reaches a kernel or raises: there is
     no silent fallback to the plain version."""
     from lewton_tpu_torch.ops.floor_kernel import floor_spectra
-    from lewton_tpu_torch.ops.overlap_kernel import overlap_i16
+    from lewton_tpu_torch.ops.overlap_kernel import (overlap_i16,
+                                                     overlap_i16_audio,
+                                                     overlap_i16_split)
     from lewton_tpu_torch.ops.synth_kernel import fused_floor_couple
 
     meta = torch.empty((4, 2 * 4 * 3), device="meta")
-    for ct_out in (True, False):
+    for ct_out, cd_n in ((True, 0), (False, 0), (True, 512)):
         with pytest.raises(ValueError, match="unsupported device"):
-            floor_spectra(meta, meta, meta, meta, meta, (), ct_out=ct_out)
+            floor_spectra(meta, meta, meta, meta, meta, (), ct_out=ct_out,
+                          cd_n=cd_n)
     with pytest.raises(ValueError, match="unsupported device"):
         overlap_i16(meta, None, meta, meta, meta, 256, 256)
+    with pytest.raises(ValueError, match="unsupported device"):
+        overlap_i16_split(meta, meta, None, meta, meta, meta, 512, 512)
+    for ct_in in (False, True):
+        with pytest.raises(ValueError, match="unsupported device"):
+            overlap_i16_audio(meta, None, meta, meta, meta, 256, 256, ct_in)
     with pytest.raises(ValueError, match="unsupported device"):
         fused_floor_couple(torch.empty((4, 4, 2, 8), device="meta"), meta,
                            meta, ())

@@ -75,7 +75,8 @@ def test_overlap_ref_matches_pallas_x_rep(T, n0, n1):
     t = torch.from_numpy
     (out, out_len), (pwr, plen, started) = overlap_add_i16_kernel_batch(
         (t(x1), None if x0 is None else t(x0)), t(bf), t(pf), t(nf),
-        t(valid), t(s0), t(s1), n0, n1, tuple(t(c) for c in carry))
+        t(valid), t(s0), t(s1), n0, n1, tuple(t(c) for c in carry),
+        ct_in=True, x_rep=True)
     assert out.shape == (S, T, C * 3 * n1 // 4) and out.dtype == torch.int16
     for s in range(S):
         (r_out, r_len), (r_pwr, r_plen, r_started) = ref_stream(s)
@@ -88,7 +89,7 @@ def test_overlap_ref_matches_pallas_x_rep(T, n0, n1):
 
 def test_dct4_gemm_within_sum_order_bound():
     ident, setup = synthetic_headers(2, 8, 11)
-    cs = compile_setup(ident, setup)
+    cs = compile_setup(ident, setup, device="cpu")
     rng = np.random.default_rng(5)
     spectra = (rng.standard_normal((C, 96, cs.w_eff)) * 40.0).astype(np.float32)
     spectra[:, ::7] *= 1e-3  # rows of mixed magnitude

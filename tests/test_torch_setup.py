@@ -11,6 +11,7 @@ the generic stages, against the reference (i16 within 1 LSB).
 """
 
 import dataclasses
+import inspect
 import os
 
 import jax
@@ -59,9 +60,10 @@ def _check(ident, setup, port_headers=None):
     """The reference's setup from ``(ident, setup)`` against the port's,
     compiled from ``port_headers`` (default: the same headers)."""
     leaves, static = carry_across(jax_compile_setup(ident, setup))
-    assert_same_setup(compile_setup(*(port_headers or (ident, setup))),
-                      leaves, static)
-    assert_same_setup(from_jax_setup(leaves, static), leaves, static)
+    assert_same_setup(compile_setup(*(port_headers or (ident, setup)),
+                                    device="cpu"), leaves, static)
+    assert_same_setup(from_jax_setup(leaves, static, device="cpu"), leaves,
+                      static)
 
 
 HDRS = [(2, 8, 11), (1, 8, 11), (4, 8, 11), (2, 9, 10), (6, 8, 12),
@@ -89,7 +91,7 @@ def test_synthetic_headers_and_frames_match_reference(hdr):
     (f,), (g,) = mine[1].floors, ref[1].floors
     for fld in dataclasses.fields(f):
         assert np.array_equal(getattr(f, fld.name), getattr(g, fld.name))
-    cs = compile_setup(*mine)
+    cs = compile_setup(*mine, device="cpu")
     for S in (None, 3):
         a = synthetic_frames(cs, T=9, S=S, seed=4)
         b = jtesting.synthetic_frames(cs, T=9, S=S, seed=4)
@@ -135,7 +137,7 @@ def _gated(ident, setup, port_headers=None):
     stages as the reference does: one chunk of two streams, i16 within
     1 LSB, out_len exact. The reference compiles ``(ident, setup)``, the
     port ``port_headers`` (default: the same headers)."""
-    cs = compile_setup(*(port_headers or (ident, setup)))
+    cs = compile_setup(*(port_headers or (ident, setup)), device="cpu")
     S, T = 2, 8
     make = synthetic_floor0_frames if cs.has_floor0 else synthetic_frames
     fr = make(cs, T=T, S=S, seed=5)
@@ -148,7 +150,7 @@ def _gated(ident, setup, port_headers=None):
         jax_compile_setup(ident, setup),
         {k: jnp.asarray(v) for k, v in fr.items()}, jcarry, with_i16=True)
     (out, out_len), _ = decode_frames_core(
-        cs, tfr, init_window_carry(cs.channels, W, S), with_i16=True)
+        cs, tfr, init_window_carry(cs.channels, W, S, "cpu"), with_i16=True)
     d = np.abs(np.asarray(j_out, np.int32) - out.numpy().astype(np.int32))
     assert d.max() <= 1
     assert np.array_equal(np.asarray(j_len), out_len.numpy())
@@ -193,3 +195,27 @@ def test_gate_floor0():
     ident_pkt, _, setup_pkt = build_headers(channels=1)
     ident = read_header_ident(ident_pkt)
     _gated(ident, read_header_setup(setup_pkt, ident))
+
+
+@pytest.mark.parametrize("name", ["compile_setup", "from_jax_setup",
+                                  "init_window_carry"])
+def test_entry_points_default_to_the_card(name):
+    """The port's entry points that create tensors put them on the card
+    unless the caller names another device; without a card such a call
+    fails instead of running on the CPU."""
+    calls = {
+        "compile_setup": (compile_setup,
+                          lambda: compile_setup(*synthetic_headers()).device),
+        "from_jax_setup": (from_jax_setup, lambda: from_jax_setup(
+            *carry_across(jax_compile_setup(*jtesting.synthetic_headers())))
+            .device),
+        "init_window_carry": (init_window_carry,
+                              lambda: init_window_carry(2, 1024, 3)[0].device),
+    }
+    fn, call = calls[name]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        assert call().type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            call()

@@ -40,7 +40,7 @@ def _compare(ident, setup, frs):
     """Run both packages over frames [N, S, T, ...] and hold them to the
     stated tolerances."""
     jcs = jax_compile_setup(ident, setup)
-    cs = from_jax_setup(*carry_across(jcs))
+    cs = from_jax_setup(*carry_across(jcs), device="cpu")
     N, S = frs["mode"].shape[:2]
     W = cs.n1 // 2
     jcarry = jax.tree.map(lambda x: jnp.broadcast_to(x, (S,) + x.shape),
@@ -50,7 +50,7 @@ def _compare(ident, setup, frs):
         with_i16=True)
     tfrs = {k: torch.from_numpy(v) for k, v in frs.items()}
     (out, out_len), (pwr, plen, started) = decode_chunks_scan(
-        cs, tfrs, init_window_carry(cs.channels, W, S), with_i16=True)
+        cs, tfrs, init_window_carry(cs.channels, W, S, "cpu"), with_i16=True)
 
     assert tuple(out.shape) == np.asarray(j_out).shape
     d = np.abs(np.asarray(j_out, np.int32) - out.numpy().astype(np.int32))
