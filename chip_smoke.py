@@ -9,9 +9,13 @@ channel-major, flat and ``cd_n`` (the Wang split's rotated pair), K2 on
 DCT-IV X, on the split halves (U, V) and on IMDCT audio (un-selected or
 pre-selected, channel-major or not), K3 -- against its plain torch version
 on the card, bit for bit, at the headline shapes (S=256 streams x T=128
-packets, flagship stereo 44.1 kHz setup), at an odd T, at the crafted
-geometries the port sends to its kernels and the reference never did (the
-split forms at those with n1 >= 512), and (K3) at 10 channels. Then it
+packets, flagship stereo 44.1 kHz setup), at an odd T, at T = 1 and with
+K2 rows that mix nothing or end inside a group of 8 samples, at the
+crafted geometries the port sends to its kernels and the reference never
+did (the split forms at those with n1 >= 512), K1 at every channel count
+1..8 it instantiates (odd and unaligned widths, modes out of range), and
+(K3) at 10 channels. It prints each kernel's registers, spill bytes and
+resident warps (``registers:``). Then it
 drives each path of ``decode_chunks_scan`` with the launch counts set to 0
 just before and read just after, and requires the kernels of that path,
 and only those, to have run once per chunk:
@@ -43,6 +47,7 @@ JSON. Needs torch and numpy only.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import statistics
 import subprocess
@@ -53,6 +58,7 @@ import numpy as np
 import torch
 
 from lewton_tpu_torch import _build
+from lewton_tpu_torch.header import Mode
 from lewton_tpu_torch.models import decoder
 from lewton_tpu_torch.models.decoder import (compile_setup,
                                              floor_kernel_inputs, floor_stage,
@@ -90,13 +96,30 @@ FLOOR0_RTOL = 2.0 ** -16  # floor-0 curve, relative (tests/test_torch_generic.py
 #: memory, and FP32 outside the tensor cores
 HBM_BYTES_PER_S, FP32_FLOP_PER_S = 3.35e12, 67e12
 #: arithmetic per output element of each kernel, for its operations bound:
-#: K1 -- 4 bracket sums (a running sum over the sorted posts needs one add
-#: each per bin), the Bresenham index (~10), inverse dB (3), the mask and
-#: the product (2), 2 per coupling step (~2); K1 cd_n adds the rotation (3
-#: per value); K3 is K1 without the bracket sums; K2 -- the window mix (3),
-#: x32768, clamp and truncation (4), the split form one add more
-OPS = {"floor": 21, "floor_flat": 21, "floor_cd": 24, "synth": 17,
+#: K1 -- the bracket lookup (prefix sums and the segment's Bresenham terms
+#: are formed once per row, channel and segment; a bin reads its seg from
+#: a table, ~2), the Bresenham index from the segment's terms (~10),
+#: inverse dB (a table read, 1), the mask and the product (2), 2 per
+#: coupling step (~2); K1 cd_n adds the rotation (3 per value); K3 forms
+#: the Bresenham terms per bin and evaluates the 4-factor inverse dB: 17;
+#: K2 -- the window mix (3), x32768, clamp and truncation (4), the split
+#: form one add more
+OPS = {"floor": 17, "floor_flat": 17, "floor_cd": 20, "synth": 17,
        "overlap": 7, "overlap_split": 8, "overlap_audio": 7}
+#: K1 at every channel count it instantiates (frames GEO_S x GEO_T of the
+#: setup synthetic_headers(C)): (C, residue dtype, w_eff cut to (None: the
+#: setup's), residue stored one element past an aligned start, modes out of
+#: [0, M) on some rows, modes M). Odd and unaligned widths take the
+#: kernel's scalar, masked accesses; 10 modes make the seg table (M C W
+#: bytes) exceed its budget, so that setup takes the binary search.
+K1_VARIANTS = ((1, torch.int16, None, False, False, 2),
+               (2, torch.int16, None, False, True, 10),
+               (3, torch.int16, 333, True, False, 2),
+               (4, torch.float32, None, True, False, 2),
+               (5, torch.int16, 381, False, True, 2),
+               (6, torch.float32, 337, False, True, 2),
+               (7, torch.int16, None, True, True, 2),
+               (8, torch.float32, 253, True, False, 2))
 
 
 def card_line() -> str:
@@ -104,6 +127,36 @@ def card_line() -> str:
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip()
+
+
+def kernel_registers(cs) -> str:
+    """Each kernel's registers a thread, local (spill) bytes a thread and
+    resident warps a multiprocessor at the headline's launch, as
+    cudaFuncGetAttributes and the occupancy calculator report them: K1's
+    two kernels at every channel count and residue type, K2's three
+    forms."""
+    lib = _build.load_library()
+    out = (ctypes.c_int * 8)()
+    parts = []
+    M = cs.mode_blockflag.shape[0]
+    for cd, form in ((0, "floor"), (1, "floor_cd")):
+        for dtype, i16 in (("i16", 1), ("f32", 0)):
+            cells = []
+            for C in range(1, 9):
+                e = lib.lt_floor_kernel_attrs(cd, C, i16, cs.w_eff,
+                                              cs.n1 // 2, cs.max_posts, M,
+                                              out)
+                if e != 0:
+                    raise RuntimeError(f"lt_floor_kernel_attrs: cudaError {e}")
+                cells.append(f"C={C} {out[0]}r/{out[1]}B/{8 * out[4]}w")
+            parts.append(f"{form} {dtype} " + " ".join(cells))
+    for form, name in enumerate(("overlap", "overlap_split", "overlap_audio")):
+        e = lib.lt_overlap_kernel_attrs(form, out)
+        if e != 0:
+            raise RuntimeError(f"lt_overlap_kernel_attrs: cudaError {e}")
+        parts.append(f"{name} {out[0]}r/{out[1]}B/{8 * out[4]}w")
+    return ("registers (registers/spill bytes a thread/resident warps a "
+            "multiprocessor): " + "; ".join(parts))
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -166,12 +219,39 @@ def k3_operands(cs, fr):
 def bound_of(ops: int, inputs, outputs) -> tuple[float, str]:
     """(bound_ms, bound_by) of a kernel: the larger of the bytes it must
     move (each input read once, each output written once) over the card's
-    memory rate and its operations over the FP32 peak."""
-    moved = sum(t.numel() * t.element_size() for t in (*inputs, *outputs)
-                if isinstance(t, torch.Tensor))
+    memory rate and its operations over the FP32 peak. inputs and outputs
+    are tensors, moved whole, or byte counts (what this run's data needs of
+    a tensor); None is skipped."""
+    moved = sum(t.numel() * t.element_size() if isinstance(t, torch.Tensor)
+                else t for t in (*inputs, *outputs) if t is not None)
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k2_row_bytes(cs, scal13, audio: bool) -> int:
+    """Bytes of K2's row input that this run's packets need, all channels.
+    In the X and split forms a packet reads the X row (or the U, V halves)
+    of its own blocksize only: n1/2 floats for a long block, n0/2 for a
+    short one (every block reads its whole row). Of a pre-selected audio
+    row [n1] a packet reads the samples its output takes (3n1/4 from the
+    lapped start) and its right region."""
+    n0, n1, C = cs.n0, cs.n1, cs.channels
+    M, m = n1 // 2, n0 // 2
+    col = scal13.reshape(-1, scal13.shape[-1])
+    if not audio:
+        long_ = (col[:, 8] > 0) | (n0 == n1)
+        floats = torch.where(long_, M, m)
+    else:
+        a_lo = torch.where(col[:, 2] > 0, (n1 - n0) // 4, 0)
+        a_hi = a_lo + 3 * n1 // 4
+        is_l, is_m = col[:, 10] > 0, col[:, 11] > 0
+        r_lo = torch.where(is_l, M, torch.where(is_m, (3 * n1 - n0) // 4, m))
+        r_hi = r_lo + torch.where(is_l, M, m)
+        both = (torch.minimum(a_hi, r_hi) - torch.maximum(a_lo, r_lo)).clamp(
+            min=0)
+        floats = (a_hi - a_lo) + (r_hi - r_lo) - both
+    return int(floats.sum()) * C * 4
 
 
 def _same_bits(a, b) -> bool:
@@ -199,12 +279,15 @@ def audio_forms(cs, spectra, bf):
             ("rows selected", rows(sel), None, False))
 
 
-def check_at(cs, s_, t_, seed, rng, err: dict, what: str) -> None:
+def check_at(cs, s_, t_, seed, rng, err: dict, what: str,
+             edges: bool = False) -> None:
     """Every kernel form against its plain version on the card, bit for
     bit, for frames [s_, t_] with random valid prefixes and a random carry:
     K1 (channel-major, flat, and cd_n where n1 >= 512), K3, K2 (X form,
     split form where n1 >= 512, the four audio forms); K1 flat also
-    against K1 channel-major transposed."""
+    against K1 channel-major transposed. With ``edges`` K2's table has
+    rows with ov_len = 0 (no mix) and rows whose out_len ends inside a
+    group of 8 samples."""
     dev = cs.device
     W = cs.n1 // 2
     fr = synthetic_frames(cs, T=t_, S=s_, seed=seed)
@@ -238,6 +321,12 @@ def check_at(cs, s_, t_, seed, rng, err: dict, what: str) -> None:
     started0 = torch.from_numpy(rng.integers(0, 2, s_).astype(bool)).to(dev)
     table = table_args(cs, fr, plen0, started0)
     scal13, slopes, _, _ = overlap_table(*table)
+    if edges:
+        scal13 = scal13.clone()
+        scal13[:, ::3, 6] = 0.0
+        part = scal13[:, 1::4, 7]
+        scal13[:, 1::4, 7] = torch.from_numpy(rng.integers(
+            1, 3 * cs.n1 // 4, tuple(part.shape)).astype("float32")).to(dev)
     tail = (scal13, slopes, pwr0, cs.n0, cs.n1)
     ok = overlap_kernel
     k2 = {"overlap": (ok.overlap_i16(x_long, x_short, *tail),
@@ -286,13 +375,81 @@ def geometry_setup(n0, n1, C, w_eff, dev):
     return cs
 
 
+def k1_variant(C, dtype, w, offset, bad_modes, modes, dev):
+    """K1's operands for one of K1_VARIANTS: (tele, residue, scal, xs, step,
+    steps, cd_n)."""
+    ident, setup = synthetic_headers(C)
+    setup.modes += [Mode(i % 2, 0) for i in range(modes - 2)]
+    cs = compile_setup(ident, setup, device=dev)
+    fr = synthetic_frames(cs, T=GEO_T, S=GEO_S, seed=20 + C)
+    fr["mode"] = np.random.default_rng(C).integers(
+        0, modes, fr["mode"].shape).astype(np.int32)
+    fr = to_dev(fr, dev)
+    tele, residue, scal = floor_kernel_inputs(cs, fr)
+    rows, W, step = tele.shape[0], cs.w_eff, cs.f1_step
+    if w is not None:
+        residue = residue.reshape(rows, C, W)[:, :, :w].reshape(rows, C * w)
+        step, W = step[:, :, :w].contiguous(), w
+    residue = residue.to(dtype)
+    if offset:  # one element past an aligned allocation
+        buf = torch.empty(residue.numel() + 1, dtype=dtype, device=dev)
+        residue = buf[1:].view(rows, C * W).copy_(residue)
+    if bad_modes:
+        M = cs.mode_blockflag.shape[0]
+        scal = scal.clone()
+        scal[::5, 0] = -1.0
+        scal[2::7, 0] = float(M)
+        scal[3::11, 0] = float(M + 5)
+    return (tele, residue, scal, cs.f1_xs, step, cs.static_coupling,
+            cs.n1 // 2)
+
+
+def check_k1_channels(dev, err: dict) -> None:
+    """K1's three forms against their plain versions, bit for bit, at every
+    channel count 1..8 (K1_VARIANTS)."""
+    for C, dtype, w, offset, bad_modes, modes in K1_VARIANTS:
+        tele, res, scal, xs, step, steps, cd_n = k1_variant(
+            C, dtype, w, offset, bad_modes, modes, dev)
+        ops = (tele, res, scal)
+        got = {"floor": floor_kernel.floor_spectra(*ops, xs, step, steps),
+               "floor_flat": floor_kernel.floor_spectra(
+                   *ops, xs, step, steps, ct_out=False),
+               "floor_cd": floor_kernel.floor_spectra(
+                   *ops, xs, step, steps, cd_n=cd_n)}
+        want = {"floor": floor_kernel.floor_spectra_ref(*ops, step, steps),
+                "floor_flat": floor_kernel.floor_spectra_ref(
+                    *ops, step, steps, ct_out=False),
+                "floor_cd": floor_kernel.floor_spectra_ref(
+                    *ops, step, steps, cd_n=cd_n)}
+        torch.cuda.synchronize()
+        what = (f"C={C} {str(dtype)[6:]} w_eff={step.shape[-1]} residue "
+                f"at +{int(offset)} M={modes}"
+                f"{', modes out of range' * bad_modes}")
+        line = []
+        for name, g in got.items():
+            d = float((g - want[name]).abs().max())
+            if not _same_bits(g, want[name]):
+                raise AssertionError(f"{name} kernel != plain ({what}): "
+                                     f"max |d| {d}")
+            err[name] = max(err[name], d)
+            line.append(f"{name} {d}")
+        print(f"kernel vs plain, K1 {what}: max|d| " + ", ".join(line)
+              + " (bit-identical)")
+
+
 def check_kernels(cs, dev, rng) -> dict:
     """Every kernel vs its plain version on the card: headline shapes, an
-    odd T, the crafted geometries, and K3 at WIDE_C channels."""
+    odd T, T = 1 and K2's edge rows, the crafted geometries, K1 at every
+    channel count it instantiates, and K3 at WIDE_C channels."""
     err = dict.fromkeys(("floor", "floor_flat", "floor_cd", "synth", "overlap",
                          "overlap_split", "overlap_audio"), 0.0)
     check_at(cs, S, T, 3, rng, err, f"S={S} T={T}")
     check_at(cs, ODD_S, ODD_T, 5, rng, err, f"S={ODD_S} T={ODD_T}")
+    check_at(cs, GEO_S, 1, 6, rng, err, f"S={GEO_S} T=1, K2 edge rows",
+             edges=True)
+    check_at(cs, GEO_S, GEO_T, 4, rng, err,
+             f"S={GEO_S} T={GEO_T}, K2 edge rows", edges=True)
+    check_k1_channels(dev, err)
     for i, geo in enumerate(GEOMETRIES):
         check_at(geometry_setup(*geo, dev), GEO_S, GEO_T, 7 + i, rng, err,
                  "(n0, n1, C, w_eff)=" + str(geo))
@@ -462,6 +619,22 @@ def path_rate(cs, frs, carry0, with_i16, plain: bool, reps: int,
     return samples / cs.sample_rate / dt, s_ * t_ * n_ / dt, dt / n_ * 1e3
 
 
+def host_enqueue_ms(cs, fr1, carry0, reps: int = 5) -> float:
+    """Median host milliseconds to enqueue one i16 main-path chunk (frames
+    [1, S, T, ...]): the call returns before the device finishes, and the
+    stream is idle before each call, so the launch queue never fills and
+    the time is the host's alone. Where it nears the device time per
+    chunk, the host sets the chunk's wall time."""
+    dts = []
+    for _ in range(reps + 1):  # the first call warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode_chunks_scan(cs, fr1, carry0, with_i16=True)
+        dts.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(dts[1:]) * 1e3
+
+
 RANGE = "chip_smoke_range"  # the profiled calls' record_function name
 
 
@@ -555,6 +728,7 @@ def main() -> None:
     print(f"setup: C={cs.channels} n0={cs.n0} n1={cs.n1} w_eff={cs.w_eff} "
           f"P={cs.max_posts} M={cs.mode_blockflag.shape[0]} "
           f"coupling={cs.static_coupling} residue_i16={cs.residue_i16}")
+    print(kernel_registers(cs) + f" | card: {card}")
 
     # ---- 2. kernel vs plain on the card (bit-identical) ----
     err = check_kernels(cs, dev, np.random.default_rng(0))
@@ -717,9 +891,12 @@ def main() -> None:
         "floor_flat": (spec_flat, k1 + (cs.f1_xs,), (spec_flat,)),
         "floor_cd": (cd, k1 + (cs.f1_xs,), (cd,)),
         "synth": (spectra, k3[:3], (spectra,)),
-        "overlap": (o_i16, k2[:5], (o_i16, o_pwr)),
-        "overlap_split": (o_i16, k2_split[:6], (o_i16, o_pwr)),
-        "overlap_audio": (o_i16, k2_audio[:5], (o_i16, o_pwr)),
+        "overlap": (o_i16, (*k2[2:5], k2_row_bytes(cs, k2[2], False)),
+                    (o_i16, o_pwr)),
+        "overlap_split": (o_i16, (*k2[2:5], k2_row_bytes(cs, k2[2], False)),
+                          (o_i16, o_pwr)),
+        "overlap_audio": (o_i16, (*k2[2:5], k2_row_bytes(cs, k2[2], True)),
+                          (o_i16, o_pwr)),
     }
     bounds = {k: bound_of(OPS[k] * e.numel(), ins, outs)
               for k, (e, ins, outs) in work.items()}
@@ -749,6 +926,7 @@ def main() -> None:
     stages = {k: stage_device_ms(fn) for k, fn in stages.items()}
     split_stages = {k: stage_device_ms(fn) for k, fn in split_stages.items()}
     fast = path_rate(cs, frs, carry0, True, False, 5)
+    host = host_enqueue_ms(cs, expand(fr0, 1), carry0)
     plain = path_rate(cs, frs, carry0, True, True, 3)
     print("timing (ms per call, headline shapes): " + ", ".join(
         f"{k} {v:.4f}" for k, v in times.items()) + f" | card: {card}")
@@ -760,7 +938,9 @@ def main() -> None:
             print(f"{label} (device ms per chunk, torch.profiler): "
                   + ", ".join(f"{k} {v:.4f}" for k, v in st.items())
                   + f", sum {sum(st.values()):.4f} | card: {card}")
-    print(f"main path chunk: {fast[2]:.4f} ms | card: {card}")
+    print(f"main path chunk: {fast[2]:.4f} ms, host enqueue of one chunk "
+          f"{host:.4f} ms (median of 5, stream idle before each) | card: "
+          f"{card}")
 
     def rate_line(label, kern, pl, n_):
         print(f"{label}: kernels {kern[0]:.1f} x_realtime ({kern[1]:.1f} "

@@ -25,7 +25,8 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["load_library", "library_path", "check_operand", "BUILD_DIR"]
+__all__ = ["load_library", "library_path", "compile_library",
+           "open_library", "check_operand", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "lewton_tpu_torch"
@@ -45,6 +46,8 @@ _SIGNATURES = {
     "lt_overlap_i16_split": [_P] * 8 + [_I] * 5 + [_P],
     "lt_overlap_i16_audio": [_P] * 7 + [_I] * 6 + [_P],
     "lt_fused_floor_couple": [_P] * 4 + [_I] * 4 + [_P] * 3,
+    "lt_floor_kernel_attrs": [_I] * 7 + [_P],
+    "lt_overlap_kernel_attrs": [_I, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -84,14 +87,14 @@ def _run_all(cmds: list[list[str]]) -> str:
     return "".join(outs)
 
 
-def _compile_and_link(so: Path) -> str:
-    """Compile every source to an object in parallel, link the library
-    into ``so``; returns nvcc's output."""
-    tmp = BUILD_DIR / f"{so.stem}.{os.getpid()}.tmp"
+def compile_library(so: Path, csrc: Path = CSRC) -> str:
+    """Compile every ``*.cu`` of ``csrc`` to an object in parallel, link the
+    library into ``so``; returns nvcc's output."""
+    tmp = so.parent / f"{so.stem}.{os.getpid()}.tmp"
     tmp.mkdir(parents=True, exist_ok=True)
     try:
         nvcc = _nvcc()
-        srcs = sorted(CSRC.glob("*.cu"))
+        srcs = sorted(csrc.glob("*.cu"))
         objs = [tmp / f"{src.stem}.o" for src in srcs]
         log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
                         for src, o in zip(srcs, objs)])
@@ -104,6 +107,16 @@ def _compile_and_link(so: Path) -> str:
     return log
 
 
+def open_library(so: Path) -> ctypes.CDLL:
+    """Load a built library and declare its C entry points."""
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernels' shared library."""
     global _lib, build_info
@@ -112,15 +125,10 @@ def load_library() -> ctypes.CDLL:
     so = library_path()
     if not so.exists():
         t0 = time.perf_counter()
-        log = _compile_and_link(so)
+        log = compile_library(so)
         build_info = (time.perf_counter() - t0, log)
-    lib = ctypes.CDLL(str(so))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    _lib = lib
-    return lib
+    _lib = open_library(so)
+    return _lib
 
 
 def check_operand(name, t, dtype, shape, device) -> None:

@@ -7,7 +7,7 @@
 //   - X form (_kernel_x with ct_in, the main path): the half-width DCT-IV
 //     X (length M = n/2) per blocksize, channel-major [C, rows, M]; the
 //     IMDCT output is audio[0:M/2] = X[M/2:], audio[M/2:3M/2] = -rev(X),
-//     audio[3M/2:2M] = -X[:M/2] -- rev(X) is a mirrored index here;
+//     audio[3M/2:2M] = -X[:M/2] -- rev(X) is a descending index here;
 //   - split form (_kernel_x with split_in, the Wang-split path): the long
 //     X arrives as the split halves U, V [C, rows, M/2] and each X_i is
 //     rebuilt where it is read: X_0 = U_0, X_{2j-1} = U_j - V_{j-1},
@@ -29,19 +29,33 @@
 //   4. carry: the right region of the stream's last valid packet (valid
 //      packets are a chunk prefix), or pwr0 when the chunk has none.
 //
+// Design. A block owns a tile of R rows of one (stream, channel) -- R
+// chosen so that a tile holds about 3 groups a thread -- and reads row
+// t-1 as the "previous" row straight from its input (for all but the
+// tile's first row the block has just read it, so it comes from L1/L2);
+// no state crosses blocks, so blocks run in any order. The 13 per-packet
+// scalars of each tile row are decoded once into shared memory. A thread
+// produces 8 consecutive output samples and stores them as one 16-byte
+// i16 store. Vorbis blocksizes are powers of two, at least 64; the kernel
+// needs n0 and n1 to be multiples of 32 (the geometry check below), which
+// makes every region boundary -- M/2, 3M/2, m/2, 3m/2, m, 2m, M, the
+// lapped start ls and the centred short window m_start -- a multiple of
+// 8. So a group of 8 never straddles two regions: the region is decided
+// once per group, the 8 X values are read as two 16-byte loads (reversed
+// and negated in registers in the mirrored region), and the split form
+// rebuilds its 8 X values from two 16-byte loads of U and of V and two
+// neighbours. Where a row is not 16-byte aligned (an offset view, which
+// the audio form may get) the same groups are read with scalar loads.
+// __launch_bounds__(256, 4) caps a thread at 64 registers, so 4 blocks,
+// 32 warps, are resident on a multiprocessor.
+//
 // Bound: memory. Per output sample it reads the input once for the current
 // row and once more as the next row's "previous" row (mostly an L2 hit),
 // and writes 2 bytes of i16; the arithmetic is two products and a sum (one
 // more add per X value in the split form). At the headline the X form
-// moves ~0.5 GB per chunk, ~0.15 ms at 3.35 TB/s; measured 0.66 ms on an
-// H100 (PERF.md), so there is room in the access pattern. The Mosaic
+// moves ~0.5 GB per chunk, ~0.15 ms at 3.35 TB/s (PERF.md). The Mosaic
 // workarounds of the TPU kernel (the roll-network and MXU lane reversals,
-// _shuffle_zip/_combine_split, the XLA-side flip) are not used: the
-// mirrored regions and the split's interleave are index arithmetic in the
-// sources' at().
-//
-// No state crosses blocks: a block owns (stream, channel, rows) and reads
-// the previous row straight from its input, so blocks run in any order.
+// _shuffle_zip/_combine_split, the XLA-side flip) are not used.
 //
 // Rounding matches the plain torch versions
 // (lewton_tpu_torch/ops/overlap_kernel.py): the split combine is one add or
@@ -54,17 +68,65 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRows = 4;
+constexpr int kMinBlocks = 4;  // resident blocks a multiprocessor: 32 warps
+constexpr int kGroup = 8;  // consecutive output samples a thread owns
+constexpr int kMaxTileRows = 64;
+constexpr int kTileItems = 3 * kThreads;  // (row, group) items a tile aims at
 constexpr int kScal = 13;  // per-packet scalar columns (windowing.py map)
 
-// Element i in [0, 2h) of the IMDCT output rebuilt from a DCT-IV row x of
-// length h (x(j) its element j).
+// the per-packet flags of scal, decoded once per tile row
+enum : int {
+  kUseS1 = 1 << 0,     // col 0: left slope of the long window
+  kUseR1 = 1 << 1,     // col 1: right slope of the long window
+  kLsOn = 1 << 2,      // col 2: lapped-start shift
+  kPrevIsL = 1 << 3,   // col 3: previous right region long&next
+  kPrevIsM = 1 << 4,   // col 4: previous right region short-in-long
+  kFirst = 1 << 5,     // row 0 or col 5: mix against the carried pwr0
+  kLong = 1 << 6,      // col 8: long block
+  kValid = 1 << 7,     // col 9
+  kNextValid = 1 << 8, // col 9 of row t+1
+  kCurIsL = 1 << 9,    // col 10: own right region long&next
+  kCurIsM = 1 << 10,   // col 11: own right region short-in-long
+};
+
+// v = p[0 .. 8): two 16-byte loads when vec (p 16-byte aligned).
+__device__ __forceinline__ void load_group(const float* p, bool vec,
+                                           float (&v)[kGroup]) {
+  if (vec) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  } else {
+#pragma unroll
+    for (int t = 0; t < kGroup; ++t) v[t] = __ldg(p + t);
+  }
+}
+
+__device__ __forceinline__ void zero8(float (&v)[kGroup]) {
+#pragma unroll
+  for (int t = 0; t < kGroup; ++t) v[t] = 0.0f;
+}
+
+// v[t] = element i0 + t of the IMDCT output rebuilt from a DCT-IV row of
+// length h (x.load8(k, w): its elements k .. k+7); i0 % 8 == 0 and
+// h/2 % 8 == 0, so the group lies in one region.
 template <class XRow>
-__device__ __forceinline__ float mirror_at(const XRow& x, int h, int i) {
+__device__ __forceinline__ void imdct8(const XRow& x, int h, int i0,
+                                       float (&v)[kGroup]) {
   const int q = h / 2;
-  if (i < q) return x(q + i);
-  if (i < 3 * q) return -x(3 * q - 1 - i);
-  return -x(i - 3 * q);
+  if (i0 < q) {
+    x.load8(q + i0, v);
+  } else if (i0 < 3 * q) {  // -x(3q-1-i): the group 3q-8-i0 .. reversed
+    float w[kGroup];
+    x.load8(3 * q - kGroup - i0, w);
+#pragma unroll
+    for (int t = 0; t < kGroup; ++t) v[t] = -w[kGroup - 1 - t];
+  } else {
+    x.load8(i0 - 3 * q, v);
+#pragma unroll
+    for (int t = 0; t < kGroup; ++t) v[t] = -v[t];
+  }
 }
 
 // X form: DCT-IV rows [C, rows, h].
@@ -72,14 +134,20 @@ struct XSource {
   const float* x;
   int h;
   size_t rows;
+  bool vec;
   struct Row {
     const float* p;
     int h;
-    __device__ float operator()(int j) const { return p[j]; }
-    __device__ float at(int i) const { return mirror_at(*this, h, i); }
+    bool vec;
+    __device__ void load8(int k, float (&v)[kGroup]) const {
+      load_group(p + k, vec, v);
+    }
+    __device__ void at8(int i0, float (&v)[kGroup]) const {
+      imdct8(*this, h, i0, v);
+    }
   };
   __device__ Row row(int c, size_t r) const {
-    return Row{x + (static_cast<size_t>(c) * rows + r) * h, h};
+    return Row{x + (static_cast<size_t>(c) * rows + r) * h, h, vec};
   }
 };
 
@@ -89,23 +157,47 @@ struct SplitSource {
   const float* v;
   int h;  // the X length M; U and V hold M/2 values per row
   size_t rows;
+  bool vec;
   struct Row {
     const float* u;
     const float* v;
     int h;
-    __device__ float operator()(int j) const {
-      if (j == 0) return u[0];
-      const int q = (j + 1) >> 1;  // j = 2q - 1 (odd) or 2q (even)
-      if (j & 1) {
-        return q == h / 2 ? -v[q - 1] : __fsub_rn(u[q], v[q - 1]);
+    bool vec;
+    // X_k .. X_{k+7} for k % 8 == 0, b = k/2: from U_b .. U_{b+4} and
+    // V_{b-1} .. V_{b+3}
+    __device__ void load8(int k, float (&x)[kGroup]) const {
+      const int b = k / 2, half = h / 2;
+      float uu[5], vv[5];  // uu[j] = U_{b+j}, vv[j] = V_{b-1+j}
+      const bool last = b + 4 == half;
+      if (vec) {
+        const float4 a = __ldg(reinterpret_cast<const float4*>(u + b));
+        const float4 c = __ldg(reinterpret_cast<const float4*>(v + b));
+        uu[0] = a.x; uu[1] = a.y; uu[2] = a.z; uu[3] = a.w;
+        vv[1] = c.x; vv[2] = c.y; vv[3] = c.z; vv[4] = c.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          uu[j] = __ldg(u + b + j);
+          vv[j + 1] = __ldg(v + b + j);
+        }
       }
-      return __fadd_rn(u[q], v[q - 1]);
+      uu[4] = last ? 0.0f : __ldg(u + b + 4);
+      vv[0] = b > 0 ? __ldg(v + b - 1) : 0.0f;
+      x[0] = b == 0 ? uu[0] : __fadd_rn(uu[0], vv[0]);
+#pragma unroll
+      for (int j = 1; j < 4; ++j) {
+        x[2 * j - 1] = __fsub_rn(uu[j], vv[j]);
+        x[2 * j] = __fadd_rn(uu[j], vv[j]);
+      }
+      x[7] = last ? -vv[4] : __fsub_rn(uu[4], vv[4]);
     }
-    __device__ float at(int i) const { return mirror_at(*this, h, i); }
+    __device__ void at8(int i0, float (&v8)[kGroup]) const {
+      imdct8(*this, h, i0, v8);
+    }
   };
   __device__ Row row(int c, size_t r) const {
     const size_t o = (static_cast<size_t>(c) * rows + r) * (h / 2);
-    return Row{u + o, v + o, h};
+    return Row{u + o, v + o, h, vec};
   }
 };
 
@@ -115,107 +207,166 @@ struct AudioSource {
   const float* a;
   size_t row_stride;
   size_t chan_stride;
+  bool vec;
   struct Row {
     const float* p;
-    __device__ float at(int i) const { return p[i]; }
+    bool vec;
+    __device__ void at8(int i0, float (&v)[kGroup]) const {
+      load_group(p + i0, vec, v);
+    }
   };
   __device__ Row row(int c, size_t r) const {
-    return Row{a + r * row_stride + static_cast<size_t>(c) * chan_stride};
+    return Row{a + r * row_stride + static_cast<size_t>(c) * chan_stride,
+               vec};
   }
 };
 
-// Right region element j (j < M) of a packet of class (is_l, is_m):
-// long&next [M, 2M) of the long output; long&!next the short window
-// centred in the long output; short [m, 2m) of the short output (of the
-// pre-selected row when there is no short input). Zero past the short
-// width for the last two.
+// Right region elements j0 .. j0+7 (j0 < M, j0 % 8 == 0) of a packet of
+// class (is_l, is_m): long&next [M, 2M) of the long output; long&!next the
+// short window centred in the long output; short [m, 2m) of the short
+// output (of the pre-selected row when there is no short input). Zero past
+// the short width for the last two.
 template <class LRow, class SRow>
-__device__ __forceinline__ float right_region(const LRow& l, const SRow& s,
+__device__ __forceinline__ void right_region8(const LRow& l, const SRow& s,
                                               bool has_short, bool is_l,
                                               bool is_m, int M, int m,
-                                              int m_start, int j) {
-  if (is_l) return l.at(M + j);
-  if (j >= m) return 0.0f;
-  if (is_m) return l.at(m_start + j);
-  if (!has_short) return l.at(m + j);
-  return s.at(m + j);
+                                              int m_start, int j0,
+                                              float (&v)[kGroup]) {
+  if (is_l) {
+    l.at8(M + j0, v);
+  } else if (j0 >= m) {
+    zero8(v);
+  } else if (is_m) {
+    l.at8(m_start + j0, v);
+  } else if (!has_short) {
+    l.at8(m + j0, v);
+  } else {
+    s.at8(m + j0, v);
+  }
 }
 
 template <class LongSrc, class ShortSrc>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 overlap_i16_kernel(const LongSrc src_l, const ShortSrc src_s, bool has_short,
                    const float* __restrict__ scal,
                    const float* __restrict__ slopes,
                    const float* __restrict__ pwr0, int16_t* __restrict__ out,
-                   float* __restrict__ pwr_out, int S, int T, int C, int n0,
-                   int n1) {
+                   float* __restrict__ pwr_out, int T, int C, int n0, int n1,
+                   int R, bool vec_io) {
+  __shared__ int s_flags[kMaxTileRows];
+  __shared__ float s_ov[kMaxTileRows];
+  __shared__ float s_len[kMaxTileRows];
   const int s = blockIdx.z;
   const int c = blockIdx.y;
+  const int t0 = blockIdx.x * R;
+  const int nrows = min(R, T - t0);
   const int M = n1 / 2;  // long DCT-IV length == W, the overlap width
   const int m = n0 / 2;  // short DCT-IV length
   const int outw = 3 * n1 / 4;
   const int ls = (n1 - n0) / 4;
   const int m_start = (3 * n1 - n0) / 4;
-  const float* slope0 = slopes;
-  const float* slope1 = slopes + M;
-  const float* rev0 = slopes + 2 * M;
-  const float* rev1 = slopes + 3 * M;
   const float* p0 = pwr0 + (static_cast<size_t>(s) * C + c) * M;
   float* pout = pwr_out + (static_cast<size_t>(s) * C + c) * M;
+  using LRow = typename LongSrc::Row;
+  using SRow = typename ShortSrc::Row;
 
-  for (int r = 0; r < kRows; ++r) {
-    const int t = blockIdx.x * kRows + r;
-    if (t >= T) break;
-    const size_t row = static_cast<size_t>(s) * T + t;
-    const float* sc = scal + row * kScal;
-    const bool use_s1 = sc[0] > 0.0f, use_r1 = sc[1] > 0.0f;
-    const bool ls_on = sc[2] > 0.0f;
-    const bool pl_is_l = sc[3] > 0.0f, pl_is_m = sc[4] > 0.0f;
-    const bool first = t == 0 || sc[5] > 0.0f;
-    const float ov_len = sc[6], out_len = sc[7];
-    const bool long_blk = sc[8] > 0.0f;
-    // previous packet of the same stream (never read for the chunk's row 0)
-    const size_t prev = first ? row : row - 1;
-    const auto lr = src_l.row(c, row);
-    const auto lp = src_l.row(c, prev);
-    using SRow = typename ShortSrc::Row;
-    const SRow sr = has_short ? src_s.row(c, row) : SRow{};
-    const SRow sp = has_short ? src_s.row(c, prev) : SRow{};
-    int16_t* orow = out + row * (static_cast<size_t>(C) * outw) +
-                    static_cast<size_t>(c) * outw;
+  for (int r = threadIdx.x; r < nrows; r += kThreads) {
+    const int t = t0 + r;
+    const float* sc = scal + (static_cast<size_t>(s) * T + t) * kScal;
+    int f = 0;
+    f |= sc[0] > 0.0f ? kUseS1 : 0;
+    f |= sc[1] > 0.0f ? kUseR1 : 0;
+    f |= sc[2] > 0.0f ? kLsOn : 0;
+    f |= sc[3] > 0.0f ? kPrevIsL : 0;
+    f |= sc[4] > 0.0f ? kPrevIsM : 0;
+    f |= t == 0 || sc[5] > 0.0f ? kFirst : 0;
+    f |= sc[8] > 0.0f ? kLong : 0;
+    f |= sc[9] > 0.0f ? kValid : 0;
+    f |= t + 1 < T && sc[kScal + 9] > 0.0f ? kNextValid : 0;
+    f |= sc[10] > 0.0f ? kCurIsL : 0;
+    f |= sc[11] > 0.0f ? kCurIsM : 0;
+    s_flags[r] = f;
+    s_ov[r] = sc[6];
+    s_len[r] = sc[7];
+  }
+  __syncthreads();
 
-    for (int j = threadIdx.x; j < outw; j += kThreads) {
-      float a;
-      if (long_blk || !has_short) {
-        a = lr.at(ls_on ? j + ls : j);
-      } else {
-        a = j < 2 * m ? sr.at(j) : 0.0f;
-      }
-      float v = a;
-      if (j < M && static_cast<float>(j) < ov_len) {
-        const float lhs = use_s1 ? slope1[j] : slope0[j];
-        const float rhs = use_r1 ? rev1[j] : rev0[j];
-        const float pwr =
-            first ? p0[j]
-                  : right_region(lp, sp, has_short, pl_is_l, pl_is_m, M, m,
-                                 m_start, j);
-        v = __fadd_rn(__fmul_rn(a, lhs), __fmul_rn(pwr, rhs));
-      }
-      if (!(static_cast<float>(j) < out_len)) v = 0.0f;
-      const float scaled =
-          fminf(fmaxf(__fmul_rn(v, 32768.0f), -32768.0f), 32767.0f);
-      orow[j] = static_cast<int16_t>(truncf(scaled));
+  const int G = outw / kGroup;
+  for (int i = threadIdx.x; i < nrows * G; i += kThreads) {
+    const int r = i / G;
+    const int j0 = (i - r * G) * kGroup;
+    const size_t row = static_cast<size_t>(s) * T + t0 + r;
+    const int f = s_flags[r];
+    const float ov_len = s_ov[r], out_len = s_len[r];
+    float a[kGroup];
+    if ((f & kLong) || !has_short) {
+      src_l.row(c, row).at8((f & kLsOn) ? j0 + ls : j0, a);
+    } else if (j0 < 2 * m) {
+      src_s.row(c, row).at8(j0, a);
+    } else {
+      zero8(a);
     }
+    if (j0 < M && static_cast<float>(j0) < ov_len) {
+      float pwr[kGroup], lhs[kGroup], rhs[kGroup];
+      if (f & kFirst) {
+        load_group(p0 + j0, vec_io, pwr);
+      } else {  // previous packet of the same stream
+        right_region8(src_l.row(c, row - 1),
+                      has_short ? src_s.row(c, row - 1) : SRow{}, has_short,
+                      f & kPrevIsL, f & kPrevIsM, M, m, m_start, j0, pwr);
+      }
+      load_group(slopes + ((f & kUseS1) ? M : 0) + j0, vec_io, lhs);
+      load_group(slopes + ((f & kUseR1) ? 3 * M : 2 * M) + j0, vec_io, rhs);
+#pragma unroll
+      for (int t = 0; t < kGroup; ++t) {
+        if (static_cast<float>(j0 + t) < ov_len) {
+          a[t] = __fadd_rn(__fmul_rn(a[t], lhs[t]), __fmul_rn(pwr[t], rhs[t]));
+        }
+      }
+    }
+    uint32_t packed[kGroup / 2];
+#pragma unroll
+    for (int t = 0; t < kGroup; t += 2) {
+      uint32_t h[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const float v =
+            static_cast<float>(j0 + t + u) < out_len ? a[t + u] : 0.0f;
+        const float scaled =
+            fminf(fmaxf(__fmul_rn(v, 32768.0f), -32768.0f), 32767.0f);
+        h[u] = static_cast<uint16_t>(static_cast<int16_t>(truncf(scaled)));
+      }
+      packed[t / 2] = h[0] | (h[1] << 16);
+    }
+    int16_t* o = out + row * (static_cast<size_t>(C) * outw) +
+                 static_cast<size_t>(c) * outw + j0;
+    if (vec_io) {
+      *reinterpret_cast<uint4*>(o) =
+          make_uint4(packed[0], packed[1], packed[2], packed[3]);
+    } else {
+#pragma unroll
+      for (int t = 0; t < kGroup; ++t) {
+        o[t] = static_cast<int16_t>(packed[t / 2] >> (16 * (t & 1)));
+      }
+    }
+  }
 
-    // carry: this row is the stream's last valid packet, or the chunk has
-    // no valid packet at all (then row 0 passes pwr0 through)
-    const bool valid = sc[9] > 0.0f;
-    const bool next_valid = t + 1 < T && sc[kScal + 9] > 0.0f;
-    if (valid && !next_valid) {
-      const bool cur_is_l = sc[10] > 0.0f, cur_is_m = sc[11] > 0.0f;
-      for (int j = threadIdx.x; j < M; j += kThreads) {
-        pout[j] = right_region(lr, sr, has_short, cur_is_l, cur_is_m, M, m,
-                               m_start, j);
+  // carry: a tile row that is the stream's last valid packet, or row 0 of
+  // a chunk with no valid packet at all (then pwr0 passes through)
+  for (int r = 0; r < nrows; ++r) {
+    const int f = s_flags[r];
+    const int t = t0 + r;
+    const bool valid = f & kValid;
+    if (valid && !(f & kNextValid)) {
+      const size_t row = static_cast<size_t>(s) * T + t;
+      const LRow lr = src_l.row(c, row);
+      const SRow sr = has_short ? src_s.row(c, row) : SRow{};
+      for (int j0 = threadIdx.x * kGroup; j0 < M; j0 += kThreads * kGroup) {
+        float v[kGroup];
+        right_region8(lr, sr, has_short, f & kCurIsL, f & kCurIsM, M, m,
+                      m_start, j0, v);
+#pragma unroll
+        for (int u = 0; u < kGroup; ++u) pout[j0 + u] = v[u];
       }
     } else if (t == 0 && !valid) {
       for (int j = threadIdx.x; j < M; j += kThreads) pout[j] = p0[j];
@@ -223,22 +374,42 @@ overlap_i16_kernel(const LongSrc src_l, const ShortSrc src_s, bool has_short,
   }
 }
 
+// Besides the launch limits: n0 and n1 multiples of 32, so that no group
+// of 8 samples straddles two regions (every Vorbis blocksize is).
 bool bad_geometry(int S, int T, int C, int n0, int n1) {
-  return S < 1 || T < 1 || C < 1 || C > 65535 || S > 65535 || n0 < 4 ||
-         n1 < n0 || n0 % 4 != 0 || n1 % 4 != 0;
+  return S < 1 || T < 1 || C < 1 || C > 65535 || S > 65535 || n0 < 32 ||
+         n1 < n0 || n0 % 32 != 0 || n1 % 32 != 0;
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// Tile rows for a row of n1 samples: about kTileItems groups a block.
+int tile_rows(int n1) {
+  const int G = 3 * n1 / 4 / kGroup;
+  const int R = kTileItems / G;
+  return R < 1 ? 1 : (R > kMaxTileRows ? kMaxTileRows : R);
 }
 
 template <class LongSrc, class ShortSrc>
 int launch(const LongSrc& l, const ShortSrc& s, bool has_short,
            const void* scal, const void* slopes, const void* pwr0, void* out,
            void* pwr_out, int S, int T, int C, int n0, int n1, void* stream) {
-  const dim3 grid((T + kRows - 1) / kRows, C, S);
+  const int R = tile_rows(n1);
+  const dim3 grid((T + R - 1) / R, C, S);
+  const bool vec_io = aligned16(slopes) && aligned16(pwr0) &&
+                      aligned16(out) && aligned16(pwr_out);
   overlap_i16_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       l, s, has_short, static_cast<const float*>(scal),
       static_cast<const float*>(slopes), static_cast<const float*>(pwr0),
-      static_cast<int16_t*>(out), static_cast<float*>(pwr_out), S, T, C, n0,
-      n1);
+      static_cast<int16_t*>(out), static_cast<float*>(pwr_out), T, C, n0, n1,
+      R, vec_io);
   return static_cast<int>(cudaGetLastError());
+}
+
+XSource x_source(const void* x, int h, size_t rows) {
+  return XSource{static_cast<const float*>(x), h, rows, aligned16(x)};
 }
 
 }  // namespace
@@ -247,8 +418,8 @@ int launch(const LongSrc& l, const ShortSrc& s, bool has_short,
 // short input may be null: n0 == n1 in the X and split forms, pre-selected
 // audio in the audio form. Common shapes: scal [S*T, 13], slopes
 // [4, n1/2], pwr0 [S, C, n1/2]; out i16 [S*T, C*3n1/4], pwr_out
-// [S, C, n1/2]. Each returns cudaGetLastError() after the launch
-// (0 = success).
+// [S, C, n1/2]. n0 and n1 must be multiples of 32. Each returns
+// cudaGetLastError() after the launch (0 = success).
 
 // X form: x_long [C, S*T, n1/2], x_short [C, S*T, n0/2].
 extern "C" int lt_overlap_i16(const void* x_long, const void* x_short,
@@ -260,10 +431,9 @@ extern "C" int lt_overlap_i16(const void* x_long, const void* x_short,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t rows = static_cast<size_t>(S) * T;
-  return launch(XSource{static_cast<const float*>(x_long), n1 / 2, rows},
-                XSource{static_cast<const float*>(x_short), n0 / 2, rows},
-                x_short != nullptr, scal, slopes, pwr0, out, pwr_out, S, T, C,
-                n0, n1, stream);
+  return launch(x_source(x_long, n1 / 2, rows),
+                x_source(x_short, n0 / 2, rows), x_short != nullptr, scal,
+                slopes, pwr0, out, pwr_out, S, T, C, n0, n1, stream);
 }
 
 // Split form: u, v [C, S*T, n1/4], x_short [C, S*T, n0/2].
@@ -276,11 +446,11 @@ extern "C" int lt_overlap_i16_split(const void* u, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t rows = static_cast<size_t>(S) * T;
-  return launch(SplitSource{static_cast<const float*>(u),
-                            static_cast<const float*>(v), n1 / 2, rows},
-                XSource{static_cast<const float*>(x_short), n0 / 2, rows},
-                x_short != nullptr, scal, slopes, pwr0, out, pwr_out, S, T, C,
-                n0, n1, stream);
+  const SplitSource src{static_cast<const float*>(u),
+                        static_cast<const float*>(v), n1 / 2, rows,
+                        aligned16(u) && aligned16(v)};
+  return launch(src, x_source(x_short, n0 / 2, rows), x_short != nullptr,
+                scal, slopes, pwr0, out, pwr_out, S, T, C, n0, n1, stream);
 }
 
 // Audio form: long [C, S*T, n1] (ct_in) or [S*T, C, n1], short the same
@@ -296,9 +466,42 @@ extern "C" int lt_overlap_i16_audio(const void* long_a, const void* short_a,
   const size_t rows = static_cast<size_t>(S) * T;
   auto src = [&](const void* p, int n) {
     const size_t nn = static_cast<size_t>(n);
-    return ct_in ? AudioSource{static_cast<const float*>(p), nn, rows * nn}
-                 : AudioSource{static_cast<const float*>(p), C * nn, nn};
+    const float* a = static_cast<const float*>(p);
+    return ct_in ? AudioSource{a, nn, rows * nn, aligned16(p)}
+                 : AudioSource{a, C * nn, nn, aligned16(p)};
   };
   return launch(src(long_a, n1), src(short_a, n0), short_a != nullptr, scal,
                 slopes, pwr0, out, pwr_out, S, T, C, n0, n1, stream);
+}
+
+// What the compiler made of each form (0 X, 1 split, 2 audio): out[0..4]
+// = registers a thread, local (spill) bytes a thread, max threads a block,
+// static shared bytes, resident blocks a multiprocessor. Returns a
+// cudaError_t.
+extern "C" int lt_overlap_kernel_attrs(int form, int* out) {
+  const void* k;
+  if (form == 0) {
+    k = reinterpret_cast<const void*>(overlap_i16_kernel<XSource, XSource>);
+  } else if (form == 1) {
+    k = reinterpret_cast<const void*>(
+        overlap_i16_kernel<SplitSource, XSource>);
+  } else if (form == 2) {
+    k = reinterpret_cast<const void*>(
+        overlap_i16_kernel<AudioSource, AudioSource>);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, k);
+  int blocks = 0;
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, kThreads, 0);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  out[2] = a.maxThreadsPerBlock;
+  out[3] = static_cast<int>(a.sharedSizeBytes);
+  out[4] = blocks;
+  return 0;
 }

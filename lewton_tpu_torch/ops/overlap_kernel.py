@@ -20,7 +20,10 @@ Valid packets must form a prefix of each stream's chunk (the reference's
 ``nvalid - 1``.
 
 Each wrapper takes CPU tensors to its plain version and CUDA tensors to
-the kernel; it never falls back from one to the other.
+the kernel; it never falls back from one to the other. The kernel writes 8
+samples a thread and needs n0 and n1 to be multiples of 32 (every Vorbis
+blocksize is): its C interface refuses other geometries, and the wrapper
+then raises.
 """
 
 from __future__ import annotations

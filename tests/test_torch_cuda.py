@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from lewton_tpu_torch.header import Mode
 from lewton_tpu_torch.models.decoder import (compile_setup,
                                              floor_kernel_inputs, floor_stage,
                                              precompute_brackets)
@@ -94,6 +95,94 @@ def test_floor_kernel_cd_matches_plain(dev, C, bs):
     torch.cuda.synchronize()
     assert got.shape == (C, 3 * 37, N)
     assert torch.equal(_bits(got), _bits(want))
+
+
+def _k1_forms(ops, xs, step, steps, N):
+    """K1's three forms and their plain versions on the same operands."""
+    got = (floor_kernel.floor_spectra(*ops, xs, step, steps),
+           floor_kernel.floor_spectra(*ops, xs, step, steps, ct_out=False),
+           floor_kernel.floor_spectra(*ops, xs, step, steps, cd_n=N))
+    want = (floor_kernel.floor_spectra_ref(*ops, step, steps),
+            floor_kernel.floor_spectra_ref(*ops, step, steps, ct_out=False),
+            floor_kernel.floor_spectra_ref(*ops, step, steps, cd_n=N))
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.parametrize("C", range(1, 9))
+def test_floor_kernel_every_channel_count(dev, C):
+    """K1's three forms at every channel count the kernel instantiates."""
+    cs = compile_setup(*synthetic_headers(C, 8, 11), device=dev)
+    ops = floor_kernel_inputs(cs, _frames(cs, 3, 37, 60 + C, dev))
+    got, want = _k1_forms(ops, cs.f1_xs, cs.f1_step, cs.static_coupling,
+                          cs.n1 // 2)
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g), _bits(w))
+
+
+@pytest.mark.parametrize("dtype", [torch.int16, torch.float32])
+@pytest.mark.parametrize("w", [333, 895])
+def test_floor_kernel_odd_width_bad_modes(dev, dtype, w):
+    """K1 at an odd w_eff (scalar, masked accesses), with the residue one
+    element past an aligned start and modes outside [0, M) on some rows:
+    those rows take brackets of no post, as the plain version's one-hot."""
+    cs = compile_setup(*synthetic_headers(2, 8, 11), device=dev)
+    tele, residue, scal = floor_kernel_inputs(cs, _frames(cs, 3, 37, w, dev))
+    rows = tele.shape[0]
+    residue = residue.reshape(rows, 2, cs.w_eff)[:, :, :w].to(dtype)
+    buf = torch.empty(residue.numel() + 1, dtype=dtype, device=dev)
+    residue = buf[1:].view(rows, 2 * w).copy_(residue.reshape(rows, 2 * w))
+    scal = scal.clone()
+    scal[::4, 0] = -1.0
+    scal[1::5, 0] = 2.0
+    step = cs.f1_step[:, :, :w].contiguous()
+    got, want = _k1_forms((tele, residue, scal), cs.f1_xs, step,
+                          cs.static_coupling, cs.n1 // 2)
+    for g, w_ in zip(got, want):
+        assert torch.equal(_bits(g), _bits(w_))
+
+
+def test_floor_kernel_search_fallback(dev):
+    """K1 with 10 modes: the [M, C, W] seg table exceeds its shared-memory
+    budget, so the kernel searches the row's posts instead."""
+    ident, setup = synthetic_headers(2, 8, 11)
+    setup.modes += [Mode(i % 2, 0) for i in range(8)]
+    cs = compile_setup(ident, setup, device=dev)
+    fr = _frames(cs, 3, 37, 8, dev)
+    fr["mode"] = torch.randint(0, 10, tuple(fr["mode"].shape),
+                               generator=torch.Generator().manual_seed(3),
+                               dtype=torch.int32).to(dev)
+    got, want = _k1_forms(floor_kernel_inputs(cs, fr), cs.f1_xs, cs.f1_step,
+                          cs.static_coupling, cs.n1 // 2)
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g), _bits(w))
+
+
+@pytest.mark.parametrize("S,T,bs", [(3, 1, (8, 11)), (2, 37, (8, 11)),
+                                    (2, 9, (6, 6)), (2, 9, (6, 13))])
+def test_overlap_x_and_split_edges(dev, S, T, bs):
+    """K2's X and split forms at T = 1, at a T that is not a multiple of
+    the row tile, at (n0, n1) = (64, 64) and (64, 8192), with rows that mix
+    nothing (ov_len = 0) and rows cut short inside a group of 8."""
+    cs = compile_setup(*synthetic_headers(2, *bs), device=dev)
+    fr, (scal, *tail) = _overlap_operands(cs, S, T, dev)
+    scal = scal.clone()
+    scal[:, ::3, 6] = 0.0
+    scal[:, 1::2, 7] = 3.0 * cs.n1 / 8 + 3.0
+    spectra = floor_stage(cs, fr, plain=True)
+    x_long, x_short = dct4_batch_parts_ct(spectra, cs.dct4_m0, cs.dct4_m1)
+    got = overlap_kernel.overlap_i16(x_long, x_short, scal, *tail)
+    want = overlap_kernel.overlap_i16_ref(x_long, x_short, scal, *tail)
+    pairs = [(got, want)]
+    if cs.n1 >= 512:
+        cd = floor_stage(cs, fr, plain=True, cd_n=cs.n1 // 2)
+        u, v = (x.contiguous() for x in dct4_split_uv_from_cd(cd, cs.n1))
+        pairs.append((
+            overlap_kernel.overlap_i16_split(u, v, x_short, scal, *tail),
+            overlap_kernel.overlap_i16_split_ref(u, v, x_short, scal, *tail)))
+    torch.cuda.synchronize()
+    for (out, pwr), (out_r, pwr_r) in pairs:
+        assert torch.equal(out, out_r) and torch.equal(_bits(pwr), _bits(pwr_r))
 
 
 @pytest.mark.parametrize("C", [1, 2, 6, 10])
