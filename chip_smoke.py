@@ -38,8 +38,17 @@ It times the kernels against their plain versions (with each kernel's
 bound: the larger of its bytes over the card's memory rate and its
 operations over the FP32 peak), each stage of a main path chunk and each
 path on its kernels and on its plain versions, and profiles one call of
-each path (device busy share, device time per op). Every failed check
-raises, so the exit code is nonzero. The last stdout line is
+each path (device busy share, device time per op).
+
+Last, the conformance gate: every committed stream of
+``tests/data/torch_gate/`` (corpus, crafted floor-1 and floor-0 streams,
+with their libvorbis goldens) through ``OggStreamReader.read_all_i16()`` on
+the card, exact length and 0 samples over +/-2 LSB; the reference's three
+production permutations of ``BatchDecoder.decode_streams_i16`` on four of
+them; the whole set again with the Wang split (recorded); and one
+file-to-PCM measurement of ``BatchDecoder`` over 32 copies of a stereo
+stream, split by stage. Every failed check raises, so the exit code is
+nonzero. The last stdout line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels as
 JSON. Needs torch and numpy only.
 """
@@ -48,7 +57,9 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import hashlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -59,6 +70,7 @@ import torch
 
 from lewton_tpu_torch import _build
 from lewton_tpu_torch.header import Mode
+from lewton_tpu_torch.inside_ogg import OggStreamReader, read_headers
 from lewton_tpu_torch.models import decoder
 from lewton_tpu_torch.models.decoder import (compile_setup,
                                              floor_kernel_inputs, floor_stage,
@@ -71,7 +83,9 @@ from lewton_tpu_torch.ops.imdct import (dct4_batch_parts_ct,
                                         imdct_batch_parts_ct, split_butterfly,
                                         split_cd_head, sum_order_bound)
 from lewton_tpu_torch.ops.windowing import init_window_carry, overlap_table
-from lewton_tpu_torch.parallel.batch import decode_chunks_scan
+from lewton_tpu_torch.ogg import PacketReader
+from lewton_tpu_torch.parallel.batch import BatchDecoder, decode_chunks_scan
+from lewton_tpu_torch.parallel.pack12 import pack12_supported, probed_h2d_mb_s
 from lewton_tpu_torch.testing import (synthetic_floor0_frames,
                                       synthetic_frames, synthetic_headers)
 
@@ -703,6 +717,183 @@ def profile_path(label, cs, frs, carry0, with_i16, top: int = 8,
         print(f"profile {label}: {us / 1e3 / n_:.4f} ms/chunk  {name[:110]}")
 
 
+GATE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests", "data", "torch_gate")
+GATE_LSB = 2  # the conformance contract: within +/-2 i16 LSB of libvorbis
+#: the reference's production permutations (bench.py's conformance check):
+#: (label, scan, transport, compact), each on 2 copies of PERM_STREAMS
+PERMUTATIONS = (("scan8_p12_device", 8, "p12", "device"),
+                ("scan16_p12_device", 16, "p12", "device"),
+                ("scan16_i16_host", 16, "i16", "host"))
+PERM_STREAMS = ("stereo_44k_q3", "ch6_44k_q3", "f1_bs8192",
+                "f0_coupled_stereo")
+E2E_STREAM, E2E_S, E2E_SCAN = "stereo_44k_q3", 32, 8
+#: K1/K2 forms the gate must launch: the i16 path (read_all_i16, host
+#: compaction), the f32 path (device compaction) and the split pass
+GATE_KERNELS = ("floor", "floor_flat", "overlap", "floor_cd",
+                "overlap_split")
+
+
+def gate_streams() -> dict:
+    """name -> (ogg bytes, golden i16 [samples, C], kind) of the committed
+    gate streams, each file held to its sha256 in the manifest."""
+    with open(os.path.join(GATE_DIR, "manifest.json")) as f:
+        manifest = json.load(f)
+    out = {}
+    for name, e in manifest["streams"].items():
+        blobs = []
+        for key in ("ogg", "golden"):
+            with open(os.path.join(GATE_DIR, e[key]), "rb") as f:
+                blob = f.read()
+            if hashlib.sha256(blob).hexdigest() != e[key + "_sha256"]:
+                raise AssertionError(f"gate {name}: {e[key]} sha256 differs "
+                                     "from the manifest")
+            blobs.append(blob)
+        with np.load(os.path.join(GATE_DIR, e["golden"])) as z:
+            golden = z["pcm"]
+        out[name] = (blobs[0], golden, e["kind"])
+    return out
+
+
+def lsb_diff(out: np.ndarray, golden: np.ndarray) -> tuple[int, int, int]:
+    """(max |out - golden| in i16 LSB, samples over GATE_LSB, samples that
+    differ at all)."""
+    if not golden.size:
+        return 0, 0, 0
+    d = np.abs(out.astype(np.int32) - golden.astype(np.int32))
+    return int(d.max()), int((d > GATE_LSB).sum()), int((d > 0).sum())
+
+
+def gate_pass(streams: dict, dev, label: str) -> dict:
+    """Every gate stream through OggStreamReader.read_all_i16() on ``dev``:
+    exact length, per-stream max diff and samples over the contract."""
+    res = {}
+    for name, (data, golden, kind) in streams.items():
+        out = OggStreamReader(data, device=dev).read_all_i16()
+        if out.shape != golden.shape:
+            raise AssertionError(f"gate {label} {name}: shape {out.shape}, "
+                                 f"golden {golden.shape}")
+        res[name] = lsb_diff(out, golden)
+        print(f"gate {label} {name} ({kind}): {out.shape[0]} samples x "
+              f"{out.shape[1]} ch, maxdiff {res[name][0]} LSB, "
+              f"{res[name][1]} over +/-{GATE_LSB}, {res[name][2]} differ")
+    return res
+
+
+def stream_packets(data: bytes):
+    """(headers, audio packets) of a single-link stream."""
+    rdr = PacketReader(data)
+    headers, serial = read_headers(rdr)
+    pcks = []
+    while (p := rdr.read_packet()) is not None:
+        if p.stream_serial == serial:
+            pcks.append(p.data)
+    return headers, pcks
+
+
+def gate_permutations(streams: dict, dev) -> dict:
+    """The production permutations of decode_streams_i16 on 2 copies of
+    each PERM_STREAMS stream. The batch decode applies no granule
+    truncation, so its output holds the golden as a prefix and at most one
+    long block more."""
+    res = {}
+    for label, scan, transport, compact in PERMUTATIONS:
+        for name in PERM_STREAMS:
+            data, golden, _ = streams[name]
+            headers, pcks = stream_packets(data)
+            dec = BatchDecoder(headers.ident, headers.setup, chunk=64,
+                               scan=scan, device=dev)
+            outs = dec.decode_streams_i16([pcks, pcks], compact=compact,
+                                          transport=transport)
+            if name == "stereo_44k_q3" and transport == "p12" and not (
+                    pack12_supported(dec.cs)
+                    and dec.last_stats["transport"] == "p12"):
+                raise AssertionError("the flagship did not take p12")
+            if not np.array_equal(outs[0], outs[1]):
+                raise AssertionError(f"perm {label} {name}: the two copies "
+                                     "differ")
+            extra = outs[0].shape[0] - golden.shape[0]
+            if not 0 <= extra <= dec.cs.n1:
+                raise AssertionError(f"perm {label} {name}: {outs[0].shape} "
+                                     f"against golden {golden.shape}")
+            r = lsb_diff(outs[0][: golden.shape[0]], golden)
+            res[f"{label}/{name}"] = r
+            print(f"perm {label} {name}: transport "
+                  f"{dec.last_stats['transport']}, maxdiff {r[0]} LSB, "
+                  f"{r[1]} over +/-{GATE_LSB}, {r[2]} differ")
+    return res
+
+
+def e2e_line(streams: dict, dev, card: str) -> None:
+    """File to PCM: BatchDecoder.decode_streams_i16 over E2E_S copies of
+    one stream's packets (entropy decode included), once pipelined and once
+    with every device stage closed by a synchronize, which splits the wall
+    time by stage."""
+    data, golden, _ = streams[E2E_STREAM]
+    headers, pcks = stream_packets(data)
+    audio_s = E2E_S * golden.shape[0] / headers.ident.sample_rate
+    dec = BatchDecoder(headers.ident, headers.setup, chunk=64,
+                       scan=E2E_SCAN, device=dev)
+    walls = {}
+    keys = ("frontend", "h2d", "device", "d2h", "compact", "other")
+    for sync in (False, True):
+        dec.stage_sync = sync
+        outs = dec.decode_streams_i16([pcks] * E2E_S, compact="host")
+        st = dec.last_stats["stages"]
+        walls[sync] = st["wall"]
+        if lsb_diff(outs[-1][: golden.shape[0]], golden)[1]:
+            raise AssertionError("e2e: output over the contract")
+    print(f"e2e file->PCM ({E2E_STREAM} x {E2E_S} streams, "
+          f"{len(pcks)} packets each, scan {E2E_SCAN}, compact host, "
+          f"transport {dec.last_stats['transport']} at a probed "
+          f"{probed_h2d_mb_s(dev):.0f} MB/s H2D): pipelined wall "
+          f"{walls[False]:.4f} s ({audio_s / walls[False]:.1f} x_realtime); "
+          "stage split (synchronized, s): "
+          + ", ".join(f"{k} {st[k]:.4f}" for k in keys)
+          + f", sum {sum(st[k] for k in keys):.4f} = wall {st['wall']:.4f} "
+          f"({audio_s / st['wall']:.1f} x_realtime); "
+          f"H2D {dec.last_stats['h2d_bytes']} B, D2H "
+          f"{dec.last_stats['d2h_bytes']} B | card: {card}")
+
+
+def conformance(dev, card: str) -> dict:
+    """The conformance phase: the gate on every committed stream, the
+    production permutations, the split pass and the e2e line. K1/K2 launch
+    counts are set to 0 before and must be nonzero after. Raises if any
+    stream of the gate or the permutations is over the contract; the split
+    pass (opt-in, not the default) is recorded."""
+    streams = gate_streams()
+    torch.cuda.synchronize()
+    for m, a in COUNTERS.values():
+        setattr(m, a, 0)
+    t0 = time.perf_counter()
+    direct = gate_pass(streams, dev, "read_all_i16")
+    perms = gate_permutations(streams, dev)
+    with split_transform():
+        split = gate_pass(streams, dev, "read_all_i16 split")
+    got = launches()
+    if not all(got[k] for k in GATE_KERNELS):
+        raise AssertionError(f"conformance: launches {got}, expected "
+                             f"nonzero {GATE_KERNELS}")
+    summary = {}
+    for label, res in (("read_all_i16", direct), ("permutations", perms),
+                       ("split", split)):
+        summary[label] = {
+            "streams": len(res),
+            "maxdiff": max(r[0] for r in res.values()),
+            "samples_over_2lsb": sum(r[1] for r in res.values()),
+            "samples_differ": sum(r[2] for r in res.values())}
+    print(f"conformance ({time.perf_counter() - t0:.1f} s, launches {got}): "
+          f"{json.dumps(summary)} | card: {card}")
+    e2e_line(streams, dev, card)
+    bad = {k: v for k, v in summary.items()
+           if k != "split" and v["samples_over_2lsb"]}
+    if bad:
+        raise AssertionError(f"conformance: samples over +/-{GATE_LSB} LSB "
+                             f"in {bad}")
+    return summary
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -961,6 +1152,9 @@ def main() -> None:
     profile_path("i16 main", cs, frs, carry0, True)
     for label, (cs_p, frs_p, with_i16) in new_paths.items():
         profile_path(label, cs_p, frs_p, carry0, with_i16, top=5)
+
+    # ---- 7. the conformance gate on the committed streams ----
+    conformance(dev, card)
 
     kernels = []
     for key, kname, src, replaces, n_launch in (

@@ -32,6 +32,13 @@ static-coupling logic) are numpy copies here; the test suite holds them
 leaf-for-leaf against the reference's ``compile_setup``. ``compile_setup``
 reads header fields only: it takes the port's records (``header.py``) and
 lewton_tpu's parsed headers alike.
+
+The host-facing half is the reference's too: :func:`pack_frames` stacks the
+host front-end's packet plans (``audio.decode_packet_entropy``) into the
+dense frames, :func:`compact_invalid_frames` and :func:`predict_out_lens`
+are its numpy helpers, bit for bit, and :class:`StreamDecoder` decodes one
+stream chunk by chunk on a device (the card unless the caller names
+another), carrying the window state across chunks.
 """
 
 from __future__ import annotations
@@ -41,6 +48,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..audio import PacketPlan, decode_packet_entropy
+from ..errors import AudioIsHeader, VorbisError
 from ..header import IdentHeader, SetupHeader
 from ..ops import imdct as imdct_mod
 from ..ops.coupling import inverse_coupling_batch, inverse_coupling_static
@@ -51,8 +60,8 @@ from ..ops.floor_kernel import MAX_CHANNELS, floor_spectra, floor_spectra_ref
 from ..ops.imdct import (dct4_batch_parts_ct, dct4_split_uv_ct,
                          dct4_split_uv_from_cd, imdct_batch, split_cd_head)
 from ..ops.synth_kernel import fused_floor_couple, fused_floor_couple_ref
-from ..ops.windowing import (compact_i16, overlap_add_batch,
-                             overlap_add_i16_kernel_batch)
+from ..ops.windowing import (compact_i16, init_window_carry,
+                             overlap_add_batch, overlap_add_i16_kernel_batch)
 from ..tables import bark_cos_omega, imdct_matrix, window_slope
 
 __all__ = ["CompiledSetup", "compile_setup", "from_jax_setup",
@@ -60,7 +69,11 @@ __all__ = ["CompiledSetup", "compile_setup", "from_jax_setup",
            "synthesis_route", "precompute_brackets", "synthesize_spectra_tapped",
            "synthesize_audio_tapped", "synthesize_audio", "finish_stream",
            "split_ok", "decode_frames_core", "decode_frames",
-           "USE_FUSED_SYNTH_KERNEL"]
+           "USE_FUSED_SYNTH_KERNEL", "DEFAULT_CHUNK", "pack_frames",
+           "compact_invalid_frames", "predict_out_lens", "frames_to_device",
+           "StreamDecoder"]
+
+DEFAULT_CHUNK = 64
 
 #: opt-in, as in the reference (decoder.py:61): floor-1 render + coupling +
 #: product through K3 for frames that carry ``f1_brackets``
@@ -575,3 +588,228 @@ def decode_frames(cs: CompiledSetup, fr: dict, carry, with_i16: bool = False,
     res = tuple({k: v[0] for k, v in r.items()} if isinstance(r, dict)
                 else r[0] for r in res)
     return res, tuple(c[0] for c in carry)
+
+
+# --------------------------------------------------------------------------- #
+# Frame packing (host): PacketPlan list -> fixed-shape arrays
+# --------------------------------------------------------------------------- #
+
+
+def pack_frames(cs: CompiledSetup, plans: list[PacketPlan], chunk: int) -> dict:
+    """Stack T <= chunk packet plans into padded dense numpy frames (the
+    reference's pack_frames, bit for bit): residue flat [T, C*w_eff] (i16
+    when ``cs.residue_i16``, else f32; zero past w_eff), a ``None`` plan an
+    invalid slot."""
+    T = chunk
+    C, W, P, Omax = cs.channels, cs.w_eff, cs.max_posts, cs.f0_order_max
+    fr = {
+        "mode": np.zeros(T, np.int32),
+        "prev_flag": np.zeros(T, bool),
+        "next_flag": np.zeros(T, bool),
+        "valid": np.zeros(T, bool),
+        "residue": np.zeros((T, C * W),
+                            np.int16 if cs.residue_i16 else np.float32),
+        "f_used": np.zeros((T, C), bool),
+        "f1_ys": np.zeros((T, C, P), np.int32),
+        "f1_flags": np.zeros((T, C, P), bool),
+        "f0_cosc": np.zeros((T, C, max(Omax, 1)), np.float32),
+        "f0_amp": np.zeros((T, C), np.float32),
+    }
+    for t, plan in enumerate(plans):
+        if plan is None:  # undecodable packet: invalid slot (device no-op)
+            continue
+        fr["mode"][t] = plan.mode_number
+        fr["prev_flag"][t] = plan.prev_window_flag
+        fr["next_flag"][t] = plan.next_window_flag
+        fr["valid"][t] = True
+        w = min(plan.n // 2, W)
+        fr["residue"][t].reshape(C, W)[:, :w] = plan.residue[:, :w]
+        for c, f in enumerate(plan.floors):
+            if f[0] == "unused":
+                continue
+            fr["f_used"][t, c] = True
+            df = f[1]
+            if f[0] == "f1":
+                so = df.floor.sort_order
+                nv = len(so)
+                fr["f1_ys"][t, c, :nv] = np.asarray(df.final_y)[so]
+                fr["f1_flags"][t, c, :nv] = np.asarray(df.step2_flag)[so]
+            else:
+                fr["f0_cosc"][t, c, : len(df.cos_coefficients)] = \
+                    df.cos_coefficients
+                fr["f0_amp"][t, c] = df.amplitude
+    return fr
+
+
+def compact_invalid_frames(fr: dict) -> None:
+    """Make each stream's valid frames a chunk prefix, in place (leaves
+    [S, T, ...] numpy). The overlap-add takes invalid slots as a chunk
+    suffix, so compacting the good frames to the front gives the
+    per-packet semantics: a bad packet emits no PCM and leaves the window
+    state untouched."""
+    valid = fr["valid"]
+    for s in range(valid.shape[0]):
+        v = valid[s]
+        n = int(v.sum())
+        if n and not v[:n].all():
+            good = np.flatnonzero(v)
+            for arr in fr.values():
+                arr[s, :n] = arr[s][good]
+                arr[s, n:] = 0
+
+
+def predict_out_lens(cs: CompiledSetup, fr: dict, started):
+    """Per-packet output lengths from host-known frame fields (numpy,
+    exact), so callers size a compacted output before the device runs.
+    ``fr`` leaves may have a leading stream axis; ``started`` is the
+    per-stream (or scalar) carry-in. Returns (out_lens i64 [..., T],
+    started_out)."""
+    bf_tab = cs.mode_blockflag
+    if isinstance(bf_tab, torch.Tensor):
+        bf_tab = bf_tab.cpu().numpy()
+    bf = np.asarray(bf_tab)[np.asarray(fr["mode"])]
+    long_blk = bf == 1
+    pf = np.asarray(fr["prev_flag"])
+    nf = np.asarray(fr["next_flag"])
+    valid = np.asarray(fr["valid"])
+    n0, n1 = cs.n0, cs.n1
+    left = np.where(long_blk & ~pf, (n1 - n0) >> 2, 0)
+    right = np.where(long_blk & ~nf, (3 * n1 - n0) >> 2,
+                     np.where(long_blk, n1 >> 1, n0 >> 1))
+    before = np.cumsum(valid, axis=-1) - valid
+    started_seq = np.logical_or(np.asarray(started)[..., None], before > 0)
+    lens = np.where(valid & started_seq, right - left, 0).astype(np.int64)
+    started_out = np.logical_or(np.asarray(started), valid.any(axis=-1))
+    return lens, started_out
+
+
+def frames_to_device(fr: dict, device) -> dict:
+    """numpy frames -> tensors on ``device``."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in fr.items()}
+
+
+# --------------------------------------------------------------------------- #
+# Host-facing stream decoder
+# --------------------------------------------------------------------------- #
+
+
+class StreamDecoder:
+    """Per-stream chunked decode (lewton_tpu.models.decoder.StreamDecoder):
+    entropy-decode packets on the host with the Python front-end, run the
+    chunk core on ``device`` (the card unless the caller names another) in
+    fixed-size chunks, and carry the window state across chunks.
+
+    The port has no native front-end: ``frontend="native"`` raises, as the
+    reference's does when its library is not built."""
+
+    def __init__(self, ident: IdentHeader, setup: SetupHeader,
+                 chunk: int = DEFAULT_CHUNK,
+                 raw_headers: tuple[bytes, bytes] | None = None,
+                 frontend: str = "auto", device="cuda"):
+        if frontend == "native":
+            if raw_headers is None:
+                raise ValueError(
+                    "frontend='native' requires raw_headers=(ident, setup)")
+            raise RuntimeError("native front-end requested but not built")
+        self.ident = ident
+        self.setup = setup
+        self.chunk = chunk
+        self.device = torch.device(device)
+        self.cs = compile_setup(ident, setup, device=self.device)
+        self.reset()
+
+    def reset(self) -> None:
+        pwr, plen, started = init_window_carry(
+            self.cs.channels, self.cs.n1 // 2, 1, self.device)
+        self.carry = (pwr[0], plen[0], started[0])
+
+    def set_residue_transport(self, kind: str) -> None:
+        """The native front-end's residue emit encoding; a no-op here (the
+        Python front-end emits i16/f32 frames, callers pack them)."""
+
+    def save_state(self):
+        """The window carry as host numpy (pwr [C, n1/2] f32, plen i32,
+        started bool), the reference's save_state layout."""
+        return tuple(c.cpu().numpy() for c in self.carry)
+
+    def load_state(self, state) -> None:
+        """Load a carry saved by :meth:`save_state` (this package's or the
+        reference's) onto the decoder's device."""
+        self.carry = tuple(torch.as_tensor(np.array(c), device=self.device)
+                           for c in state)
+
+    def entropy_chunk(self, packets: list[bytes]) -> dict:
+        """Host half for one chunk: packets -> dense frames (numpy dict).
+        Strict: raises on any non-audio or undecodable packet, so ``valid``
+        is a chunk prefix."""
+        plans = [decode_packet_entropy(self.ident, self.setup, p)
+                 for p in packets]
+        return pack_frames(self.cs, plans, self.chunk)
+
+    def entropy_chunk_status(self, packets: list[bytes],
+                             out: dict | None = None):
+        """Like :meth:`entropy_chunk` but tolerant: returns (frames, status)
+        with per-slot status 0 ok / 1 header packet / 2 bad; bad slots stay
+        ``valid=False``."""
+        plans: list = []
+        status = np.zeros(self.chunk, np.uint8)
+        for t, p in enumerate(packets):
+            try:
+                plans.append(decode_packet_entropy(self.ident, self.setup, p))
+            except AudioIsHeader:
+                plans.append(None)
+                status[t] = 1
+            except VorbisError:
+                plans.append(None)
+                status[t] = 2
+        fr = pack_frames(self.cs, plans, self.chunk)
+        if out is not None:
+            for k in out:
+                out[k][...] = fr[k]
+            fr = out
+        return fr, status
+
+    def entropy_chunk_batch(self, streams: list[list[bytes]],
+                            threads: int | None = None,
+                            out: dict | None = None) -> dict:
+        """Host half for one chunk of a stream batch: [S][<=T] packets ->
+        frames with a leading stream axis (into ``out`` when given).
+        Tolerant: bad packets are skipped by compacting each stream's good
+        frames to a chunk prefix (:func:`compact_invalid_frames`).
+        ``threads`` is taken for the reference's signature; the Python
+        front-end decodes on the calling thread."""
+        frs = [self.entropy_chunk_status(pcks)[0] for pcks in streams]
+        stacked = {k: np.stack([f[k] for f in frs]) for k in frs[0]}
+        compact_invalid_frames(stacked)
+        if out is not None:
+            for k in out:
+                out[k][...] = stacked[k]
+            return out
+        return stacked
+
+    def _decode(self, packets: list[bytes], with_i16: bool):
+        outs: list[np.ndarray] = []
+        C = self.cs.channels
+        for i in range(0, len(packets), self.chunk):
+            batch = packets[i: i + self.chunk]
+            fr = frames_to_device(self.entropy_chunk(batch), self.device)
+            (out, out_len), self.carry = decode_frames(
+                self.cs, fr, self.carry, with_i16=with_i16)
+            out = out.cpu().numpy()
+            if with_i16:
+                out = out.reshape(len(out), C, -1)
+            out_len = out_len.cpu().numpy()
+            for t in range(len(batch)):
+                outs.append(out[t, :, : int(out_len[t])])
+        return outs
+
+    def decode_packets(self, packets: list[bytes]) -> list[np.ndarray]:
+        """Decode audio packets -> planar f32 [C, out_len] per packet (the
+        first packet of a stream yields length 0)."""
+        return self._decode(packets, with_i16=False)
+
+    def decode_packets_i16(self, packets: list[bytes]) -> list[np.ndarray]:
+        """Like :meth:`decode_packets` through the device i16 path (K1 and
+        K2 on the card): planar i16 [C, out_len] per packet."""
+        return self._decode(packets, with_i16=True)

@@ -47,6 +47,10 @@ from test_torch_generic_slice import (GENERIC, _case, _close_f32, _close_i16,
 from test_torch_overlap import _case as _ola_case
 from test_torch_overlap import _slopes
 
+# one intra-op thread: the suite runs a pytest worker per core, and torch's
+# default pool in every worker would oversubscribe the CPU many times over
+torch.set_num_threads(1)
+
 C = 2
 
 

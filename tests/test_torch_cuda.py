@@ -11,11 +11,14 @@ the CPU: the GEMMs sum in other orders there, so i16 within 1 LSB.
 chip_smoke.py repeats these checks at the headline shapes.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
 from lewton_tpu_torch.header import Mode
+from lewton_tpu_torch.inside_ogg import OggStreamReader
 from lewton_tpu_torch.models.decoder import (compile_setup,
                                              floor_kernel_inputs, floor_stage,
                                              precompute_brackets)
@@ -379,3 +382,20 @@ def test_generic_i16_path_matches_cpu(dev, kw):
     assert (out.cpu().int() - out_c.int()).abs().max() <= 1
     assert torch.equal(ln.cpu(), ln_c)
     assert bool(torch.isfinite(c[0]).all())
+
+
+@pytest.mark.parametrize("name", ["stereo_44k_q3", "ch6_44k_q3"])
+def test_read_all_i16_on_the_card_matches_golden(dev, name):
+    """A committed gate stream, file to PCM on the card through K1 and K2:
+    exact length, within +/-2 LSB of its libvorbis golden."""
+    gate = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                        "torch_gate")
+    before = (floor_kernel.LAUNCHES, overlap_kernel.LAUNCHES)
+    out = OggStreamReader(os.path.join(gate, name + ".ogg"),
+                          device=dev).read_all_i16()
+    assert floor_kernel.LAUNCHES > before[0]
+    assert overlap_kernel.LAUNCHES > before[1]
+    with np.load(os.path.join(gate, name + ".golden.npz")) as z:
+        golden = z["pcm"]
+    assert out.shape == golden.shape
+    assert np.abs(out.astype(np.int32) - golden.astype(np.int32)).max() <= 2

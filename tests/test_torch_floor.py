@@ -22,6 +22,10 @@ from lewton_tpu_torch.ops import floor_curve as tfc
 from lewton_tpu_torch.ops.floor_kernel import floor_spectra, floor_spectra_ref
 from test_torch_setup import carry_across
 
+# one intra-op thread: the suite runs a pytest worker per core, and torch's
+# default pool in every worker would oversubscribe the CPU many times over
+torch.set_num_threads(1)
+
 
 def bits_equal(a, b) -> bool:
     a, b = np.asarray(a), np.asarray(b)

@@ -49,6 +49,10 @@ from test_torch_floor import _bres_operands, bits_equal
 from test_torch_generic_slice import _frames, _packets
 from test_torch_setup import _per_mode_coupling_headers, carry_across
 
+# one intra-op thread: the suite runs a pytest worker per core, and torch's
+# default pool in every worker would oversubscribe the CPU many times over
+torch.set_num_threads(1)
+
 F32 = np.float32
 BIG_X = 1 << 24
 

@@ -52,6 +52,10 @@ from lewton_tpu_torch.ops.synth_kernel import (fused_floor_couple,
 from test_torch_floor import bits_equal
 from test_torch_setup import carry_across
 
+# one intra-op thread: the suite runs a pytest worker per core, and torch's
+# default pool in every worker would oversubscribe the CPU many times over
+torch.set_num_threads(1)
+
 FLOOR0_RTOL = 2.0 ** -16
 OLA_ULPS = 2
 

@@ -56,6 +56,10 @@ from test_torch_setup import carry_across
 from tools import floor0_stream
 from tools.craft import VARIANTS, build_stream
 
+# one intra-op thread: the suite runs a pytest worker per core, and torch's
+# default pool in every worker would oversubscribe the CPU many times over
+torch.set_num_threads(1)
+
 #: the floor-0 streams: mono (residue type 1), stereo coupled (type 2),
 #: mono residue type 2
 FLOOR0 = {"floor0_mono": {},

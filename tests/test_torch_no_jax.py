@@ -4,7 +4,9 @@ wrappers run the plain versions and launch nothing.
 The machine with the card has no JAX, so every module of
 ``lewton_tpu_torch`` and ``chip_smoke.py`` is imported in a subprocess
 whose import hook refuses ``jax`` and ``lewton_tpu``; the same subprocess
-decodes a small chunk on the CPU and checks that no kernel was launched or
+decodes a small chunk on the CPU through every path and a committed gate
+stream from the file through ``OggStreamReader.read_all_i16`` (within
++/-2 LSB of its libvorbis golden), and checks that no kernel was launched or
 built.
 """
 
@@ -15,6 +17,10 @@ import sys
 
 import pytest
 import torch
+
+# one intra-op thread: the suite runs a pytest worker per core, and torch's
+# default pool in every worker would oversubscribe the CPU many times over
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -35,8 +41,14 @@ mods = [m.name for m in pkgutil.walk_packages(lewton_tpu_torch.__path__,
 for m in mods:
     importlib.import_module(m)
 import chip_smoke  # noqa: F401
-assert {"lewton_tpu_torch.ops.coupling",
-        "lewton_tpu_torch.ops.synth_kernel"} <= set(mods)
+assert {"lewton_tpu_torch.ops.coupling", "lewton_tpu_torch.ops.synth_kernel",
+        "lewton_tpu_torch.errors", "lewton_tpu_torch.bitpack",
+        "lewton_tpu_torch.huffman", "lewton_tpu_torch.header",
+        "lewton_tpu_torch.floor", "lewton_tpu_torch.residue",
+        "lewton_tpu_torch.audio", "lewton_tpu_torch.samples",
+        "lewton_tpu_torch.ogg.demux", "lewton_tpu_torch.inside_ogg",
+        "lewton_tpu_torch.parallel.pack12",
+        "lewton_tpu_torch.parallel.batch"} <= set(mods)
 
 import torch
 from lewton_tpu_torch import _build
@@ -82,6 +94,16 @@ for kw, fused, split, own in (
         assert torch.equal(out, out_p) and torch.equal(ln, ln_p)
         assert all(torch.equal(a, b) for a, b in zip(c, c_p))
 imdct.USE_DCT4_SPLIT = False
+
+# a committed gate stream, file to PCM, against its libvorbis golden
+import numpy as np
+from lewton_tpu_torch.inside_ogg import OggStreamReader
+out = OggStreamReader("tests/data/torch_gate/stereo_44k_q3.ogg",
+                      device="cpu").read_all_i16()
+with np.load("tests/data/torch_gate/stereo_44k_q3.golden.npz") as z:
+    golden = z["pcm"]
+assert out.shape == golden.shape
+assert np.abs(out.astype(np.int32) - golden).max() <= 2
 assert (floor_kernel.LAUNCHES, floor_kernel.LAUNCHES_FLAT,
         floor_kernel.LAUNCHES_CD, overlap_kernel.LAUNCHES,
         overlap_kernel.LAUNCHES_SPLIT, overlap_kernel.LAUNCHES_AUDIO,
@@ -93,13 +115,13 @@ print("OK", len(mods))
 
 
 def test_port_imports_without_jax():
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", _GUARDED], cwd=ROOT,
                           env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("OK")
-    assert int(proc.stdout.split()[1]) >= 10  # every submodule was imported
+    assert int(proc.stdout.split()[1]) >= 24  # every submodule was imported
 
 
 def test_no_jax_import_in_sources():

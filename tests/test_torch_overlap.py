@@ -24,6 +24,10 @@ from lewton_tpu_torch.ops.imdct import dct4_batch_parts_ct, sum_order_bound
 from lewton_tpu_torch.ops.windowing import overlap_add_i16_kernel_batch
 from lewton_tpu_torch.testing import synthetic_headers
 
+# one intra-op thread: the suite runs a pytest worker per core, and torch's
+# default pool in every worker would oversubscribe the CPU many times over
+torch.set_num_threads(1)
+
 C = 2
 
 

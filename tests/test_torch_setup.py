@@ -39,6 +39,10 @@ from lewton_tpu_torch.ops.windowing import init_window_carry
 from lewton_tpu_torch.testing import (synthetic_floor0_frames,
                                       synthetic_frames, synthetic_headers)
 
+# one intra-op thread: the suite runs a pytest worker per core, and torch's
+# default pool in every worker would oversubscribe the CPU many times over
+torch.set_num_threads(1)
+
 
 def carry_across(jcs):
     """The reference setup as numpy leaves + Python statics."""

@@ -35,6 +35,10 @@ from lewton_tpu_torch.ops.windowing import init_window_carry
 from lewton_tpu_torch.parallel.batch import decode_chunks_scan
 from test_torch_setup import carry_across
 
+# one intra-op thread: the suite runs a pytest worker per core, and torch's
+# default pool in every worker would oversubscribe the CPU many times over
+torch.set_num_threads(1)
+
 
 def _compare(ident, setup, frs):
     """Run both packages over frames [N, S, T, ...] and hold them to the
