@@ -40,21 +40,29 @@ operations over the FP32 peak), each stage of a main path chunk and each
 path on its kernels and on its plain versions, and profiles one call of
 each path (device busy share, device time per op).
 
-Last, the conformance gate: every committed stream of
-``tests/data/torch_gate/`` (corpus, crafted floor-1 and floor-0 streams,
-with their libvorbis goldens) through ``OggStreamReader.read_all_i16()`` on
-the card, exact length and 0 samples over +/-2 LSB; the reference's three
-production permutations of ``BatchDecoder.decode_streams_i16`` on four of
-them; the whole set again with the Wang split (recorded); and one
-file-to-PCM measurement of ``BatchDecoder`` over 32 copies of a stereo
-stream, split by stage. Every failed check raises, so the exit code is
-nonzero. The last stdout line is
+Last, the host-facing path. The frames phase: every audio packet of the
+committed streams of ``tests/data/torch_gate/`` through the port's native
+front-end (its C++ library, built here by the host compiler) and its Python
+one, the frames and status codes the same in f32, i16 and p12 emit, with
+the known exceptions named in FRAMES_RESIDUE_DIVERGES, and both
+front-ends' packets/s. The conformance gate on the native front-end: every
+committed stream (corpus, crafted floor-1 and floor-0 streams, with their
+libvorbis goldens) through ``OggStreamReader.read_all_i16()`` on the card,
+exact length and 0 samples over +/-2 LSB; the reference's three production
+permutations of ``BatchDecoder.decode_streams_i16`` on four of them (the
+flagship's p12 from the native emit); the whole set again with the Wang
+split (recorded). Then file-to-PCM lines of ``BatchDecoder`` split by
+stage: 32 copies of a stereo stream on the Python front-end and on the
+native one (medians of calls in turn), and the reference's ``bench.py
+--e2e`` shape (256 streams of about 30 s). Every failed check raises, so the
+exit code is nonzero. The last stdout line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels as
-JSON. Needs torch and numpy only.
+JSON. Needs torch, numpy, nvcc and a C++ compiler.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import ctypes
 import hashlib
@@ -68,11 +76,11 @@ import time
 import numpy as np
 import torch
 
-from lewton_tpu_torch import _build
+from lewton_tpu_torch import _build, native
 from lewton_tpu_torch.header import Mode
 from lewton_tpu_torch.inside_ogg import OggStreamReader, read_headers
 from lewton_tpu_torch.models import decoder
-from lewton_tpu_torch.models.decoder import (compile_setup,
+from lewton_tpu_torch.models.decoder import (StreamDecoder, compile_setup,
                                              floor_kernel_inputs, floor_stage,
                                              precompute_brackets, split_ok,
                                              synthesize_spectra_tapped)
@@ -85,7 +93,8 @@ from lewton_tpu_torch.ops.imdct import (dct4_batch_parts_ct,
 from lewton_tpu_torch.ops.windowing import init_window_carry, overlap_table
 from lewton_tpu_torch.ogg import PacketReader
 from lewton_tpu_torch.parallel.batch import BatchDecoder, decode_chunks_scan
-from lewton_tpu_torch.parallel.pack12 import pack12_supported, probed_h2d_mb_s
+from lewton_tpu_torch.parallel.pack12 import (pack12_np, pack12_supported,
+                                             probed_h2d_mb_s)
 from lewton_tpu_torch.testing import (synthetic_floor0_frames,
                                       synthetic_frames, synthetic_headers)
 
@@ -728,6 +737,16 @@ PERMUTATIONS = (("scan8_p12_device", 8, "p12", "device"),
 PERM_STREAMS = ("stereo_44k_q3", "ch6_44k_q3", "f1_bs8192",
                 "f0_coupled_stereo")
 E2E_STREAM, E2E_S, E2E_SCAN = "stereo_44k_q3", 32, 8
+E2E_REPS = 3  # native-front-end calls of each kind at E2E_S
+#: the reference's bench.py --e2e shape: streams, and copies of the 3 s
+#: stream's audio packets in each (about 30 s)
+BENCH_S, BENCH_TILE = 256, 10
+FRAME_EMITS = ("f32", "i16", "p12")
+#: first-link audio packets whose residue the native library decodes
+#: differently from the Python front-end: their bits run out in the
+#: residue section, where the library adds a vector the Python front-end
+#: does not (tests/test_torch_native.py holds the same set on the CPU)
+FRAMES_RESIDUE_DIVERGES = {"f1_two_submaps": {16, 20, 28, 32}}
 #: K1/K2 forms the gate must launch: the i16 path (read_all_i16, host
 #: compaction), the f32 path (device compaction) and the split pass
 GATE_KERNELS = ("floor", "floor_flat", "overlap", "floor_cd",
@@ -781,7 +800,8 @@ def gate_pass(streams: dict, dev, label: str) -> dict:
 
 
 def stream_packets(data: bytes):
-    """(headers, audio packets) of a single-link stream."""
+    """(headers, audio packets) of a single-link stream; the headers carry
+    the raw header packets (``raw_ident``, ``raw_setup``)."""
     rdr = PacketReader(data)
     headers, serial = read_headers(rdr)
     pcks = []
@@ -791,24 +811,130 @@ def stream_packets(data: bytes):
     return headers, pcks
 
 
+def stream_links(data: bytes) -> list:
+    """[(ident, setup, raw header packets, audio packets)] of each chain
+    link, as OggStreamReader splits a stream into links."""
+    rdr = OggStreamReader(data, device="cpu")
+    links = []
+    while (p := rdr.read_next_audio_packet()) is not None:
+        if not links or rdr._fresh_link:
+            rdr._fresh_link = False
+            links.append((rdr.ident_hdr, rdr.setup_hdr, rdr._raw_headers, []))
+        links[-1][3].append(p.data)
+    return links
+
+
+def frames_diff(fr: dict, want: dict, label: str) -> set:
+    """Native frames against the Python front-end's: bit for bit, f0_cosc
+    within 1 f32 ulp; returns the packet rows whose residue differs (held
+    to FRAMES_RESIDUE_DIVERGES by the caller), raises on anything else."""
+    rows = set()
+    for k, a in fr.items():
+        b = want[k]
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"frames {label} {k}: {a.dtype}{a.shape} "
+                                 f"against {b.dtype}{b.shape}")
+        if a.tobytes() == b.tobytes():
+            continue
+        if k == "f0_cosc" and (np.abs(a - b) <= np.spacing(np.abs(b))).all():
+            continue
+        if k != "residue":
+            raise AssertionError(f"frames {label}: {k} differs")
+        rows |= {int(t) for t in np.flatnonzero((a != b).any(axis=-1))}
+    return rows
+
+
+def frames_phase(streams: dict, dev, card: str) -> dict:
+    """Every audio packet of every gate stream (each chain link) through
+    StreamDecoder(frontend="native") and (frontend="python") in chunks of
+    64: the status codes and frames the same, in every residue emit the
+    setup allows (f32; i16 where the static bound allows it; p12 where
+    pack12_supported), with the known exceptions of
+    FRAMES_RESIDUE_DIVERGES. Raises on a mismatch; prints the packet count
+    and both front-ends' packets/s (one-stream entry, the setup's default
+    emit)."""
+    n_pck = n_links = 0
+    secs = {"native": 0.0, "python": 0.0}
+    emits_run = dict.fromkeys(FRAME_EMITS, 0)
+    for name, (data, _, _) in streams.items():
+        for li, (ident, setup, raw, pcks) in enumerate(stream_links(data)):
+            dec = {fe: StreamDecoder(ident, setup, chunk=64, raw_headers=raw,
+                                     frontend=fe, device=dev)
+                   for fe in secs}
+            ns = dec["native"]._native
+            default = ns.residue_dtype
+            emits = {"f32": np.float32}
+            if dec["native"].cs.residue_i16:
+                emits["i16"] = np.int16
+            if pack12_supported(dec["native"].cs):
+                emits["p12"] = np.uint32
+            diverged = set()
+            for i in range(0, len(pcks), 64):
+                chunk = pcks[i: i + 64]
+                t0 = time.perf_counter()
+                py_fr, py_st = dec["python"].entropy_chunk_status(chunk)
+                secs["python"] += time.perf_counter() - t0
+                for emit, dt in emits.items():
+                    ns.residue_dtype = dt
+                    t0 = time.perf_counter()
+                    fr, st = dec["native"].entropy_chunk_status(chunk)
+                    if np.dtype(dt) == default:
+                        secs["native"] += time.perf_counter() - t0
+                    label = f"{name} link {li} {emit} chunk {i // 64}"
+                    if st.tobytes() != py_st.tobytes():
+                        raise AssertionError(f"frames {label}: status "
+                                             f"{st} against {py_st}")
+                    res = py_fr["residue"]
+                    want = dict(py_fr, residue=pack12_np(res)
+                                if dt == np.uint32 else res.astype(dt))
+                    diverged |= {i + t for t in frames_diff(fr, want, label)}
+                    emits_run[emit] += len(chunk)
+            expect = FRAMES_RESIDUE_DIVERGES.get(name, set()) if li == 0 \
+                else set()
+            if diverged != expect:
+                raise AssertionError(f"frames {name} link {li}: residue "
+                                     f"differs at packets {sorted(diverged)},"
+                                     f" expected {sorted(expect)}")
+            n_pck += len(pcks)
+            n_links += 1
+    rates = {fe: n_pck / t for fe, t in secs.items()}
+    print(f"frames: {n_pck} audio packets of {len(streams)} gate streams "
+          f"({n_links} links), native = python in "
+          + ", ".join(f"{e} ({n} packets)" for e, n in emits_run.items())
+          + " (f0_cosc within 1 f32 ulp; residue of "
+          + ", ".join(f"{k} packets {sorted(v)}"
+                      for k, v in FRAMES_RESIDUE_DIVERGES.items())
+          + " as known); one-stream entry, default emit: native "
+          f"{rates['native']:.1f} packets/s, python {rates['python']:.1f} "
+          f"packets/s | card: {card}")
+    return rates
+
+
 def gate_permutations(streams: dict, dev) -> dict:
     """The production permutations of decode_streams_i16 on 2 copies of
-    each PERM_STREAMS stream. The batch decode applies no granule
-    truncation, so its output holds the golden as a prefix and at most one
-    long block more."""
+    each PERM_STREAMS stream, on the native front-end. The batch decode
+    applies no granule truncation, so its output holds the golden as a
+    prefix and at most one long block more."""
     res = {}
     for label, scan, transport, compact in PERMUTATIONS:
         for name in PERM_STREAMS:
             data, golden, _ = streams[name]
             headers, pcks = stream_packets(data)
             dec = BatchDecoder(headers.ident, headers.setup, chunk=64,
-                               scan=scan, device=dev)
+                               scan=scan, device=dev,
+                               raw_headers=(headers.raw_ident,
+                                            headers.raw_setup))
+            if dec._sd._native is None:
+                raise AssertionError("the batch decoder is not on the "
+                                     "native front-end")
             outs = dec.decode_streams_i16([pcks, pcks], compact=compact,
                                           transport=transport)
             if name == "stereo_44k_q3" and transport == "p12" and not (
                     pack12_supported(dec.cs)
-                    and dec.last_stats["transport"] == "p12"):
-                raise AssertionError("the flagship did not take p12")
+                    and dec.last_stats["transport"] == "p12"
+                    and dec._sd._native.residue_dtype == np.uint32):
+                raise AssertionError("the flagship did not take p12 from "
+                                     "the native emit")
             if not np.array_equal(outs[0], outs[1]):
                 raise AssertionError(f"perm {label} {name}: the two copies "
                                      "differ")
@@ -819,50 +945,131 @@ def gate_permutations(streams: dict, dev) -> dict:
             r = lsb_diff(outs[0][: golden.shape[0]], golden)
             res[f"{label}/{name}"] = r
             print(f"perm {label} {name}: transport "
-                  f"{dec.last_stats['transport']}, maxdiff {r[0]} LSB, "
-                  f"{r[1]} over +/-{GATE_LSB}, {r[2]} differ")
+                  f"{dec.last_stats['transport']}, residue emit "
+                  f"{np.dtype(dec._sd._native.residue_dtype).name}, maxdiff "
+                  f"{r[0]} LSB, {r[1]} over +/-{GATE_LSB}, {r[2]} differ")
     return res
 
 
-def e2e_line(streams: dict, dev, card: str) -> None:
-    """File to PCM: BatchDecoder.decode_streams_i16 over E2E_S copies of
-    one stream's packets (entropy decode included), once pipelined and once
-    with every device stage closed by a synchronize, which splits the wall
-    time by stage."""
+STAGES = ("frontend", "h2d", "device", "d2h", "compact", "other")
+
+
+def e2e_call(dec, streams: list, sync: bool):
+    """One decode_streams_i16 call (compact host), pipelined or with every
+    device stage closed by a synchronize: (outputs, last_stats)."""
+    dec.stage_sync = sync
+    outs = dec.decode_streams_i16(streams, compact="host")
+    return outs, dict(dec.last_stats)
+
+
+def e2e_print(label: str, dec, n_pck: int, audio_s: float, piped: list,
+              synced: list, card: str) -> None:
+    """One e2e line: the median pipelined and synchronized walls, and the
+    stage split of the synchronized call whose wall is the median (its
+    stages sum to its wall)."""
+    walls = {k: [st["stages"]["wall"] for st in v]
+             for k, v in (("pipelined", piped), ("synchronized", synced))}
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    st = min(synced, key=lambda x: abs(x["stages"]["wall"]
+                                       - med["synchronized"]))
+    sg = st["stages"]
+    print(f"e2e file->PCM {label}: {n_pck} packets, chunk {dec.chunk}, scan "
+          f"{dec.scan}, compact host, transport {st['transport']} at a "
+          f"probed {probed_h2d_mb_s(dec.device):.0f} MB/s H2D; pipelined "
+          f"wall median {med['pipelined']:.4f} s of "
+          f"{['%.4f' % w for w in walls['pipelined']]} "
+          f"({audio_s / med['pipelined']:.1f} x_realtime); synchronized "
+          f"median {med['synchronized']:.4f} s of "
+          f"{['%.4f' % w for w in walls['synchronized']]} "
+          f"({audio_s / med['synchronized']:.1f} x_realtime), its stage "
+          "split (s): " + ", ".join(f"{k} {sg[k]:.4f}" for k in STAGES)
+          + f", sum {sum(sg[k] for k in STAGES):.4f} = wall {sg['wall']:.4f}"
+          f"; front-end {n_pck / sg['frontend']:.0f} packets/s; H2D "
+          f"{st['h2d_bytes']} B, D2H {st['d2h_bytes']} B | card: {card}")
+
+
+def e2e_lines(streams: dict, dev, card: str) -> dict:
+    """File to PCM through BatchDecoder.decode_streams_i16 (compact host,
+    entropy decode included): E2E_S copies of one stream on the Python
+    front-end (one pipelined and one synchronized call), the same on the
+    native front-end (warmed once, then E2E_REPS pipelined and E2E_REPS
+    synchronized calls in turn), and the reference's bench.py --e2e shape:
+    BENCH_S streams of the stream's audio packet spans tiled BENCH_TILE
+    times (native demux_spans, PacketSpans), warmed once, then one
+    pipelined and one synchronized call. Returns the medians."""
     data, golden, _ = streams[E2E_STREAM]
     headers, pcks = stream_packets(data)
-    audio_s = E2E_S * golden.shape[0] / headers.ident.sample_rate
-    dec = BatchDecoder(headers.ident, headers.setup, chunk=64,
-                       scan=E2E_SCAN, device=dev)
-    walls = {}
-    keys = ("frontend", "h2d", "device", "d2h", "compact", "other")
-    for sync in (False, True):
-        dec.stage_sync = sync
-        outs = dec.decode_streams_i16([pcks] * E2E_S, compact="host")
-        st = dec.last_stats["stages"]
-        walls[sync] = st["wall"]
-        if lsb_diff(outs[-1][: golden.shape[0]], golden)[1]:
-            raise AssertionError("e2e: output over the contract")
-    print(f"e2e file->PCM ({E2E_STREAM} x {E2E_S} streams, "
-          f"{len(pcks)} packets each, scan {E2E_SCAN}, compact host, "
-          f"transport {dec.last_stats['transport']} at a probed "
-          f"{probed_h2d_mb_s(dev):.0f} MB/s H2D): pipelined wall "
-          f"{walls[False]:.4f} s ({audio_s / walls[False]:.1f} x_realtime); "
-          "stage split (synchronized, s): "
-          + ", ".join(f"{k} {st[k]:.4f}" for k in keys)
-          + f", sum {sum(st[k] for k in keys):.4f} = wall {st['wall']:.4f} "
-          f"({audio_s / st['wall']:.1f} x_realtime); "
-          f"H2D {dec.last_stats['h2d_bytes']} B, D2H "
-          f"{dec.last_stats['d2h_bytes']} B | card: {card}")
+    raw = (headers.raw_ident, headers.raw_setup)
+    rate = headers.ident.sample_rate
+    n1 = headers.ident.bs1
+
+    def check(outs, copies: int) -> float:
+        """All outputs alike, the first copy of the audio within the
+        contract (the samples before the last block of the copy; the next
+        copy's first packet overlaps that one); returns the audio seconds."""
+        cut = golden.shape[0] - n1
+        for o in (outs[0], outs[-1]):
+            if o.shape[0] < copies * cut or lsb_diff(o[:cut], golden[:cut])[1]:
+                raise AssertionError("e2e: output over the contract")
+        if not np.array_equal(outs[0], outs[-1]):
+            raise AssertionError("e2e: copies of one stream differ")
+        return sum(o.shape[0] for o in outs) / rate
+
+    res = {}
+    for frontend, reps in (("python", 1), ("native", E2E_REPS)):
+        dec = BatchDecoder(headers.ident, headers.setup, chunk=64,
+                           scan=E2E_SCAN, raw_headers=raw, frontend=frontend,
+                           device=dev)
+        batch = [pcks] * E2E_S
+        if frontend == "native":
+            e2e_call(dec, batch, False)  # warm: buffers, link probe
+        runs = {False: [], True: []}
+        for _ in range(reps):
+            for sync in (False, True):
+                outs, st = e2e_call(dec, batch, sync)
+                runs[sync].append(st)
+        audio_s = check(outs, 1)
+        e2e_print(f"{frontend} front-end ({E2E_STREAM} x {E2E_S} streams, "
+                  f"{'warm, ' if frontend == 'native' else ''}{reps} "
+                  "pipelined and synchronized calls in turn)", dec,
+                  E2E_S * len(pcks), audio_s, runs[False], runs[True], card)
+        res[frontend] = {k: statistics.median(st["stages"]["wall"]
+                                              for st in v)
+                         for k, v in (("pipelined", runs[False]),
+                                      ("synchronized", runs[True]))}
+    spans = native.demux_spans(data)[0]
+    first = len(spans) - len(pcks)
+    tiled = native.PacketSpans(spans.data,
+                               np.tile(spans.offs[first:], BENCH_TILE),
+                               np.tile(spans.lens[first:], BENCH_TILE))
+    dec = BatchDecoder(headers.ident, headers.setup, chunk=64, scan=E2E_SCAN,
+                       raw_headers=raw, device=dev)
+    batch = [tiled] * BENCH_S
+    e2e_call(dec, batch, False)  # warm
+    piped = e2e_call(dec, batch, False)[1]
+    outs, synced = e2e_call(dec, batch, True)
+    audio_s = check(outs, BENCH_TILE)
+    runs = {False: [piped], True: [synced]}
+    e2e_print(f"bench.py --e2e shape (native front-end, {E2E_STREAM} audio "
+              f"spans tiled {BENCH_TILE}x = {outs[0].shape[0] / rate:.1f} s "
+              f"x {BENCH_S} streams, warm, one pipelined and one "
+              "synchronized call)", dec, BENCH_S * len(tiled), audio_s,
+              runs[False], runs[True], card)
+    res["bench"] = {"pipelined": runs[False][0]["stages"]["wall"],
+                    "synchronized": runs[True][0]["stages"]["wall"]}
+    return res
 
 
 def conformance(dev, card: str) -> dict:
-    """The conformance phase: the gate on every committed stream, the
-    production permutations, the split pass and the e2e line. K1/K2 launch
-    counts are set to 0 before and must be nonzero after. Raises if any
-    stream of the gate or the permutations is over the contract; the split
-    pass (opt-in, not the default) is recorded."""
+    """The conformance phase: the frames phase, then the gate on every
+    committed stream, the production permutations and the split pass (all
+    on the native front-end, the default with raw headers), then the e2e
+    lines. K1/K2 launch counts are set to 0 before the gate and must be
+    nonzero after. Raises if any stream of the gate or the permutations is
+    over the contract; the split pass (opt-in, not the default) is
+    recorded."""
     streams = gate_streams()
+    frames_phase(streams, dev, card)
     torch.cuda.synchronize()
     for m, a in COUNTERS.values():
         setattr(m, a, 0)
@@ -883,14 +1090,15 @@ def conformance(dev, card: str) -> dict:
             "maxdiff": max(r[0] for r in res.values()),
             "samples_over_2lsb": sum(r[1] for r in res.values()),
             "samples_differ": sum(r[2] for r in res.values())}
-    print(f"conformance ({time.perf_counter() - t0:.1f} s, launches {got}): "
+    print(f"conformance on the native front-end "
+          f"({time.perf_counter() - t0:.1f} s, launches {got}): "
           f"{json.dumps(summary)} | card: {card}")
-    e2e_line(streams, dev, card)
     bad = {k: v for k, v in summary.items()
            if k != "split" and v["samples_over_2lsb"]}
     if bad:
         raise AssertionError(f"conformance: samples over +/-{GATE_LSB} LSB "
                              f"in {bad}")
+    e2e_lines(streams, dev, card)
     return summary
 
 
@@ -904,15 +1112,21 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
 
-    # ---- 1. build ----
+    # ---- 1. build: the kernels (nvcc) and the host front-end (c++) ----
     t0 = time.perf_counter()
-    _build.load_library()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        host = pool.submit(_build.load_host_library)
+        _build.load_library()
+        host.result()
     if _build.build_info is not None:
         secs, log = _build.build_info
         print(f"build: nvcc {secs:.1f} s -> {_build.library_path()}")
         print(log.strip())
     else:
         print(f"build: library already present ({time.perf_counter() - t0:.2f} s)")
+    print("build: host front-end " + (
+        f"{_build.host_build_seconds:.1f} s" if _build.host_build_seconds
+        is not None else "already present") + f" -> {_build._host_lib._name}")
 
     headers = synthetic_headers(channels=2, bs0_exp=8, bs1_exp=11)
     cs = compile_setup(*headers, device=dev)

@@ -13,11 +13,23 @@ Flags: ``sm_90a`` (Hopper), ``--fmad=false`` so every multiply and add is
 rounded separately (the kernels are held bit-identical to their plain torch
 versions, which round separately), ``-prec-div=true`` for IEEE division and
 no ``-use_fast_math`` (no flush-to-zero, no approximate division).
+
+The host front-end (``native/*.cc``: Ogg demux, header parse, entropy
+decode into frames) is built the same way by the host's C++ compiler, no
+CUDA involved, into ``liblewton_host_<hash>.so`` beside the kernels:
+``-ffp-contract=off`` keeps every float operation rounded as the Python
+front-end rounds it (GCC contracts ``a*b+c`` into an FMA under
+``-march=native`` otherwise), and ``-Wl,-Bsymbolic`` binds the library's
+calls to its own code when another build of the same sources is loaded in
+the process. Its hash also covers what ``-march=native`` means on this host
+(the compiler's predefined macros), so a library built on another CPU is
+never loaded. A file lock lets one process build while the others wait.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -26,10 +38,15 @@ import time
 from pathlib import Path
 
 __all__ = ["load_library", "library_path", "compile_library",
-           "open_library", "check_operand", "BUILD_DIR"]
+           "open_library", "check_operand", "BUILD_DIR",
+           "load_host_library", "host_library_path"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+NATIVE = Path(__file__).resolve().parent / "native"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "lewton_tpu_torch"
+HOST_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17",
+              "-ffp-contract=off")
+HOST_LINK = ("-shared", "-Wl,-Bsymbolic", "-Wl,--no-undefined", "-pthread")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH + (
     "-std=c++17", "-O3", "--fmad=false", "-prec-div=true", "-Xptxas=-v",
@@ -54,6 +71,10 @@ _lib: ctypes.CDLL | None = None
 #: (seconds, nvcc's output) of the build this process ran; None when the
 #: library was already built
 build_info: tuple[float, str] | None = None
+_host_lib: ctypes.CDLL | None = None
+#: seconds of the host library's build this process ran; None when it was
+#: already built
+host_build_seconds: float | None = None
 
 
 def _nvcc() -> str:
@@ -82,8 +103,8 @@ def _run_all(cmds: list[list[str]]) -> str:
     outs = [p.communicate()[0] for p in procs]
     for cmd, p, out in zip(cmds, procs, outs):
         if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed (exit {p.returncode}):\n"
-                               f"{' '.join(cmd)}\n{out}")
+            raise RuntimeError(f"{os.path.basename(cmd[0])} failed (exit "
+                               f"{p.returncode}):\n{' '.join(cmd)}\n{out}")
     return "".join(outs)
 
 
@@ -129,6 +150,66 @@ def load_library() -> ctypes.CDLL:
         build_info = (time.perf_counter() - t0, log)
     _lib = open_library(so)
     return _lib
+
+
+def _cxx() -> str:
+    path = os.environ.get("CXX") or shutil.which("c++") or shutil.which("g++")
+    if not path:
+        raise RuntimeError("no C++ compiler found: the host front-end of "
+                           "lewton_tpu_torch cannot be built")
+    return path
+
+
+def host_library_path() -> Path:
+    """Path of the host library for the current sources, flags, compiler
+    and CPU (the compiler's predefined macros under ``-march=native``)."""
+    cxx = _cxx()
+    target = subprocess.run(
+        [cxx, *HOST_FLAGS, "-dM", "-E", "-x", "c++", os.devnull],
+        capture_output=True, text=True, check=True).stdout
+    h = hashlib.sha256(" ".join(HOST_FLAGS + HOST_LINK).encode())
+    h.update("\n".join(sorted(target.splitlines())).encode())
+    for f in sorted([*NATIVE.glob("*.cc"), *NATIVE.glob("*.h")]):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"liblewton_host_{h.hexdigest()[:16]}.so"
+
+
+def compile_host_library(so: Path) -> None:
+    """Compile every ``native/*.cc`` to an object in parallel and link the
+    host library into ``so``."""
+    tmp = so.parent / f"{so.stem}.{os.getpid()}.tmp"
+    tmp.mkdir(parents=True, exist_ok=True)
+    try:
+        cxx = _cxx()
+        srcs = sorted(NATIVE.glob("*.cc"))
+        objs = [tmp / f"{s.stem}.o" for s in srcs]
+        _run_all([[cxx, *HOST_FLAGS, "-c", "-o", str(o), str(s)]
+                  for s, o in zip(srcs, objs)])
+        lib = tmp / so.name
+        _run_all([[cxx, *HOST_LINK, "-o", str(lib), *map(str, objs), "-lm"]])
+        os.replace(lib, so)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def load_host_library() -> ctypes.CDLL:
+    """Build (if needed, one process at a time) and load the host
+    front-end's shared library. A failed build raises."""
+    global _host_lib, host_build_seconds
+    if _host_lib is not None:
+        return _host_lib
+    so = host_library_path()
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with open(BUILD_DIR / "host_build.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not so.exists():
+                t0 = time.perf_counter()
+                compile_host_library(so)
+                host_build_seconds = time.perf_counter() - t0
+    _host_lib = ctypes.CDLL(str(so))
+    return _host_lib
 
 
 def check_operand(name, t, dtype, shape, device) -> None:

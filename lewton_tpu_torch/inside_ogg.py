@@ -8,8 +8,11 @@ truncation to the page granule, linear sample skip and page-granularity seek.
 The port's copy of lewton_tpu/inside_ogg.py with one decode backend,
 ``backend="torch"``: the reference's ``backend="jax"`` branches, with the
 numeric half on ``device`` (the card unless the caller names another)
-through ``models.decoder.StreamDecoder``. The reference's ``"numpy"`` and
-``"native"`` backends are not ported.
+through ``models.decoder.StreamDecoder``, whose default front-end is the
+port's C++ library (the reader passes it the raw header packets). A byte
+source is demuxed by the same library (``native.NativePacketReader``, the
+same packets as ``ogg.PacketReader``). The reference's ``"numpy"`` and
+``"native"`` backends (its CPU decoders) are not ported.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from .header import (
     read_header_setup,
 )
 from .models.decoder import StreamDecoder
+from .native import NativePacketReader
 from .ogg import Packet, PacketReader
 
 __all__ = ["read_headers", "OggStreamReader"]
@@ -69,11 +73,11 @@ class OggStreamReader:
             if isinstance(source, str):
                 with open(source, "rb") as f:
                     source = f.read()
-            self.rdr = PacketReader(bytes(source))
+            self.rdr = NativePacketReader(bytes(source))
         elif hasattr(source, "read_packet"):
             self.rdr = source
         else:
-            self.rdr = PacketReader(source.read())
+            self.rdr = NativePacketReader(source.read())
         self.device = device
         # Light header read: ident + comment parse eagerly, setup lazily
         # (the codebook/Huffman build is the expensive part). `setup_hdr`

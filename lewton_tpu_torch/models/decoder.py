@@ -43,14 +43,16 @@ another), carrying the window state across chunks.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..audio import PacketPlan, decode_packet_entropy
-from ..errors import AudioIsHeader, VorbisError
+from ..errors import AudioBadFormat, AudioIsHeader, VorbisError
 from ..header import IdentHeader, SetupHeader
+from ..native import NativeStream, PacketSpans
 from ..ops import imdct as imdct_mod
 from ..ops.coupling import inverse_coupling_batch, inverse_coupling_static
 from ..ops.floor_curve import (BIG_X, floor0_curve_batch, floor1_brackets_mxu,
@@ -696,27 +698,38 @@ def frames_to_device(fr: dict, device) -> dict:
 
 class StreamDecoder:
     """Per-stream chunked decode (lewton_tpu.models.decoder.StreamDecoder):
-    entropy-decode packets on the host with the Python front-end, run the
-    chunk core on ``device`` (the card unless the caller names another) in
-    fixed-size chunks, and carry the window state across chunks.
+    entropy-decode packets on the host, run the chunk core on ``device``
+    (the card unless the caller names another) in fixed-size chunks, and
+    carry the window state across chunks.
 
-    The port has no native front-end: ``frontend="native"`` raises, as the
-    reference's does when its library is not built."""
+    ``frontend``: "auto" (the default) and "native" entropy-decode with the
+    port's C++ library (``native/``), which parses the raw header packets
+    and so needs ``raw_headers=(ident packet, setup packet)``; "auto"
+    without them, and "python", take the Python front-end. A library that
+    fails to build or load raises: nothing falls back to the Python
+    front-end."""
 
     def __init__(self, ident: IdentHeader, setup: SetupHeader,
                  chunk: int = DEFAULT_CHUNK,
                  raw_headers: tuple[bytes, bytes] | None = None,
                  frontend: str = "auto", device="cuda"):
-        if frontend == "native":
-            if raw_headers is None:
-                raise ValueError(
-                    "frontend='native' requires raw_headers=(ident, setup)")
-            raise RuntimeError("native front-end requested but not built")
+        if frontend not in ("auto", "native", "python"):
+            raise ValueError(f"frontend {frontend!r}: 'auto', 'native' or "
+                             "'python'")
+        if frontend == "native" and raw_headers is None:
+            raise ValueError(
+                "frontend='native' requires raw_headers=(ident, setup): the "
+                "C++ parser reads the raw header packets")
         self.ident = ident
         self.setup = setup
         self.chunk = chunk
         self.device = torch.device(device)
         self.cs = compile_setup(ident, setup, device=self.device)
+        self._native = None
+        if frontend != "python" and raw_headers is not None:
+            self._native = NativeStream(*raw_headers)
+            self._native.frame_width = self.cs.w_eff
+            self.set_residue_transport("default")
         self.reset()
 
     def reset(self) -> None:
@@ -725,8 +738,27 @@ class StreamDecoder:
         self.carry = (pwr[0], plen[0], started[0])
 
     def set_residue_transport(self, kind: str) -> None:
-        """The native front-end's residue emit encoding; a no-op here (the
-        Python front-end emits i16/f32 frames, callers pack them)."""
+        """The native front-end's residue emit: "default" (i16 when the
+        setup's static bound allows it, else f32) or "p12" (the 12-bit
+        planes, packed as the packets are decoded: one write of the
+        dominant buffer instead of decode then pack; needs
+        parallel.pack12.pack12_supported). A no-op on the Python front-end,
+        whose callers pack its i16/f32 frames."""
+        if kind not in ("default", "p12"):
+            raise ValueError(f"residue transport {kind!r}: 'default' or "
+                             "'p12'")
+        if self._native is None:
+            return
+        if kind == "p12":
+            from ..parallel.pack12 import pack12_supported
+
+            if not pack12_supported(self.cs):
+                raise ValueError("p12 emit needs the setup's static bound "
+                                 "< 2048 and a row width divisible by 8")
+            self._native.residue_dtype = np.uint32
+        else:
+            self._native.residue_dtype = (
+                np.int16 if self.cs.residue_i16 else np.float32)
 
     def save_state(self):
         """The window carry as host numpy (pwr [C, n1/2] f32, plen i32,
@@ -741,8 +773,18 @@ class StreamDecoder:
 
     def entropy_chunk(self, packets: list[bytes]) -> dict:
         """Host half for one chunk: packets -> dense frames (numpy dict).
-        Strict: raises on any non-audio or undecodable packet, so ``valid``
-        is a chunk prefix."""
+        Strict: raises on any non-audio or undecodable packet (the Python
+        front-end's exception classes, whichever front-end runs), so
+        ``valid`` is a chunk prefix."""
+        if self._native is not None:
+            fr, status = self._native.decode_chunk(packets, self.chunk)
+            st = status[: len(packets)]
+            if st.any():
+                bad = int(np.argmax(st != 0))
+                if st[bad] == 1:
+                    raise AudioIsHeader(f"header packet at chunk index {bad}")
+                raise AudioBadFormat(f"undecodable packet at chunk index {bad}")
+            return fr
         plans = [decode_packet_entropy(self.ident, self.setup, p)
                  for p in packets]
         return pack_frames(self.cs, plans, self.chunk)
@@ -752,6 +794,8 @@ class StreamDecoder:
         """Like :meth:`entropy_chunk` but tolerant: returns (frames, status)
         with per-slot status 0 ok / 1 header packet / 2 bad; bad slots stay
         ``valid=False``."""
+        if self._native is not None:
+            return self._native.decode_chunk(packets, self.chunk, out=out)
         plans: list = []
         status = np.zeros(self.chunk, np.uint8)
         for t, p in enumerate(packets):
@@ -770,23 +814,49 @@ class StreamDecoder:
             fr = out
         return fr, status
 
-    def entropy_chunk_batch(self, streams: list[list[bytes]],
-                            threads: int | None = None,
+    def entropy_chunk_batch(self, streams: list, threads: int | None = None,
                             out: dict | None = None) -> dict:
-        """Host half for one chunk of a stream batch: [S][<=T] packets ->
-        frames with a leading stream axis (into ``out`` when given).
-        Tolerant: bad packets are skipped by compacting each stream's good
-        frames to a chunk prefix (:func:`compact_invalid_frames`).
-        ``threads`` is taken for the reference's signature; the Python
-        front-end decodes on the calling thread."""
-        frs = [self.entropy_chunk_status(pcks)[0] for pcks in streams]
-        stacked = {k: np.stack([f[k] for f in frs]) for k in frs[0]}
-        compact_invalid_frames(stacked)
-        if out is not None:
-            for k in out:
-                out[k][...] = stacked[k]
-            return out
-        return stacked
+        """Host half for one chunk of a stream batch: [S][<=T] packets (each
+        stream a list of bytes or a ``native.PacketSpans``) -> frames with a
+        leading stream axis, into ``out`` when given. Tolerant: bad packets
+        are skipped by compacting each stream's good frames to a chunk
+        prefix (:func:`compact_invalid_frames`). The native front-end
+        decodes the whole batch in one call on ``threads`` worker threads
+        (default: the cores, at most 8); the Python front-end decodes on
+        the calling thread."""
+        if self._native is None:
+            frs = [self.entropy_chunk_status(pcks)[0] for pcks in streams]
+            stacked = {k: np.stack([f[k] for f in frs]) for k in frs[0]}
+            compact_invalid_frames(stacked)
+            if out is not None:
+                for k in out:
+                    out[k][...] = stacked[k]
+                return out
+            return stacked
+        S, T = len(streams), self.chunk
+        if threads is None:
+            threads = min(8, os.cpu_count() or 1)
+        fr = out if out is not None else self._native.frame_buffers(
+            T, lead=(S,))
+        if S and isinstance(streams[0], PacketSpans):
+            # zero-copy: the packets stay in their demux blobs, only the
+            # [S, T] span tables are built per chunk
+            offs = np.zeros((S, T), np.uint64)
+            lens = np.zeros((S, T), np.uint64)
+            counts = np.zeros(S, np.int32)
+            bufs = np.zeros(S, np.uint64)
+            for s, sp in enumerate(streams):
+                n = min(len(sp), T)
+                counts[s] = n
+                offs[s, :n] = sp.offs[:n]
+                lens[s, :n] = sp.lens[:n]
+                bufs[s] = sp.data.ctypes.data
+            self._native.decode_chunk_batch_view(bufs, offs, lens, counts, fr,
+                                                 threads=threads)
+        else:
+            self._native.decode_chunk_batch(streams, T, fr, threads=threads)
+        compact_invalid_frames(fr)
+        return fr
 
     def _decode(self, packets: list[bytes], with_i16: bool):
         outs: list[np.ndarray] = []

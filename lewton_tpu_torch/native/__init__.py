@@ -1,0 +1,465 @@
+"""ctypes binding of the port's host front-end library.
+
+The C++ sources beside this file are the port's copy of the reference's
+bit-serial host half (lewton_tpu/native/: ``lt_bits``, ``lt_header``,
+``lt_entropy``, ``lt_ogg``): Ogg demux, header parse and Huffman/VQ entropy
+decode into the same dense frames as the Python front-end
+(``audio.decode_packet_entropy`` + ``models.decoder.pack_frames``), bit for
+bit. ``_build.load_host_library`` compiles them with the host's C++
+compiler into ``build/lewton_tpu_torch/`` at first use; a failed build
+raises, and nothing here falls back to the Python front-end. The reference's
+CPU synthesis decoder, whole-file decode and C ABI (``lt_synth``,
+``lt_file``, ``lt_capi``) are not part of the port.
+"""
+
+from __future__ import annotations
+
+import ctypes as C
+
+import numpy as np
+
+from .. import _build
+from ..errors import BadHeader, OggError
+
+__all__ = ["available", "NativeStream", "PacketSpans", "NativePacket",
+           "NativePacketReader", "demux", "demux_spans", "pack12"]
+
+_lib = None
+
+_u8p, _u32p, _u64p = (C.POINTER(C.c_uint8), C.POINTER(C.c_uint32),
+                      C.POINTER(C.c_uint64))
+_i16p, _i32p, _f32p = (C.POINTER(C.c_int16), C.POINTER(C.c_int32),
+                       C.POINTER(C.c_float))
+#: the frame outputs every lt_decode_chunk* entry takes, after its inputs:
+#: mode, prev, next, status, residue (by emit dtype), f_used, f1_ys,
+#: f1_flags, f0_cosc, f0_amp, row width
+_FRAME_ARGS = {res: [_i32p, _u8p, _u8p, _u8p, res, _u8p, _i32p, _u8p, _f32p,
+                     _f32p, C.c_int]
+               for res in (_f32p, _i16p, _u32p)}
+_EMIT = {"": _f32p, "_i16": _i16p, "_p12": _u32p}
+#: residue dtype -> (entry suffix, C element type)
+_RESIDUE_CT = {np.dtype(np.float32): ("", C.c_float),
+               np.dtype(np.int16): ("_i16", C.c_int16),
+               np.dtype(np.uint32): ("_p12", C.c_uint32)}
+
+
+def _load():
+    """Build (if needed) and load the library and declare its entry points;
+    raises when it cannot be built or loaded."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = _build.load_host_library()
+    lib.lt_stream_new.restype = C.c_void_p
+    lib.lt_stream_new.argtypes = [_u8p, C.c_size_t, _u8p, C.c_size_t,
+                                  C.c_char_p, C.c_size_t]
+    lib.lt_stream_free.argtypes = [C.c_void_p]
+    for name in ("channels", "n0", "n1", "rate", "max_posts",
+                 "f0_order_max", "n_modes"):
+        fn = getattr(lib, f"lt_stream_{name}")
+        fn.restype = C.c_int
+        fn.argtypes = [C.c_void_p]
+    lib.lt_stream_mode_blockflag.restype = C.c_int
+    lib.lt_stream_mode_blockflag.argtypes = [C.c_void_p, C.c_int]
+    for suffix, res in _EMIT.items():
+        frame = _FRAME_ARGS[res]
+        for variant, head, tail in (
+                ("", [_u8p, _u64p, _u64p, C.c_int], []),
+                ("_batch", [_u8p, _u64p, _u64p, _i32p, C.c_int, C.c_int],
+                 [C.c_int]),
+                ("_batch_v", [C.POINTER(C.c_void_p), _u64p, _u64p, _i32p,
+                              C.c_int, C.c_int], [C.c_int])):
+            fn = getattr(lib, f"lt_decode_chunk{variant}{suffix}")
+            fn.restype = C.c_int
+            fn.argtypes = [C.c_void_p, *head, *frame, *tail]
+    lib.lt_ogg_new.restype = C.c_void_p
+    lib.lt_ogg_new.argtypes = [_u8p, C.c_size_t]
+    lib.lt_ogg_free.argtypes = [C.c_void_p]
+    lib.lt_ogg_packet_count.restype = C.c_int64
+    lib.lt_ogg_packet_count.argtypes = [C.c_void_p]
+    lib.lt_ogg_packet_meta.argtypes = [C.c_void_p, _u64p, _u32p, _u8p,
+                                       _u64p, _u64p]
+    lib.lt_ogg_packet_data.argtypes = [C.c_void_p, _u8p]
+    lib.lt_pack12.restype = C.c_int64
+    lib.lt_pack12.argtypes = [_i16p, _u32p, C.c_int64, C.c_int64]
+    _lib = lib
+    return lib
+
+
+def available() -> bool:
+    """True once this process has loaded the library. Callers that can
+    use it without needing it (``parallel.pack12.pack12_np``) ask this, so
+    they never start a build."""
+    return _lib is not None
+
+
+def _ptr(arr: np.ndarray, ctype):
+    return arr.ctypes.data_as(C.POINTER(ctype))
+
+
+def _u8(arr: np.ndarray):
+    return _ptr(arr.view(np.uint8), C.c_uint8)
+
+
+def pack12(arr: np.ndarray) -> np.ndarray:
+    """The C loop of ``parallel.pack12.pack12_np``: [..., 8K] i16 ->
+    [..., 3K] u32. Raises on a value outside [-2048, 2047]."""
+    lib = _load()
+    if arr.dtype != np.int16 or arr.shape[-1] % 8:
+        raise ValueError("pack12 takes i16 rows of a multiple of 8 values")
+    arr = np.ascontiguousarray(arr)
+    n = arr.shape[-1]
+    rows = arr.size // n if n else 0
+    out = np.empty(arr.shape[:-1] + (n * 3 // 8,), np.uint32)
+    if lib.lt_pack12(_ptr(arr, C.c_int16), _ptr(out, C.c_uint32),
+                     C.c_int64(rows), C.c_int64(n)):
+        raise ValueError("pack12: residue value outside [-2048, 2047]")
+    return out
+
+
+class NativeStream:
+    """Per-stream entropy front-end: packets -> dense frames."""
+
+    def __init__(self, ident_packet: bytes, setup_packet: bytes):
+        lib = _load()
+        self._lib = lib
+        err = C.create_string_buffer(256)
+        ib = np.frombuffer(ident_packet, dtype=np.uint8)
+        sb = np.frombuffer(setup_packet, dtype=np.uint8)
+        self._h = lib.lt_stream_new(_u8(ib), len(ident_packet), _u8(sb),
+                                    len(setup_packet), err, 256)
+        if not self._h:
+            raise BadHeader(err.value.decode() or "native header parse failed")
+        self.channels = lib.lt_stream_channels(self._h)
+        self.n0 = lib.lt_stream_n0(self._h)
+        self.n1 = lib.lt_stream_n1(self._h)
+        self.sample_rate = lib.lt_stream_rate(self._h)
+        self.max_posts = lib.lt_stream_max_posts(self._h)
+        self.f0_order_max = lib.lt_stream_f0_order_max(self._h)
+        self.n_modes = lib.lt_stream_n_modes(self._h)
+        self.mode_blockflag = np.array(
+            [lib.lt_stream_mode_blockflag(self._h, m)
+             for m in range(self.n_modes)], dtype=np.int32)
+        #: residue frame width; callers with a compiled setup narrow it to
+        #: the effective spectral extent (CompiledSetup.w_eff)
+        self.frame_width = self.n1 // 2
+        self._residue_dtype = np.dtype(np.float32)
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self._lib.lt_stream_free(self._h)
+            self._h = None
+
+    @property
+    def residue_dtype(self) -> np.dtype:
+        """Residue frame dtype: float32 (the default), int16 (exact when the
+        setup passes the static integer-lattice check, residue_i16_bound) or
+        uint32, the 12-bit transport planes packed at emit time (needs
+        pack12_supported: static bound < 2048, row width divisible by 8)."""
+        return self._residue_dtype
+
+    @residue_dtype.setter
+    def residue_dtype(self, value) -> None:
+        value = np.dtype(value)
+        if value not in (np.float32, np.int16, np.uint32):
+            raise ValueError(f"residue dtype {value}: float32, int16 or "
+                             "uint32 (p12)")
+        self._residue_dtype = value
+
+    def _residue_row_width(self) -> int:
+        """Residue row width in elements of residue_dtype (the p12 planes
+        are 3/8 of the logical i16 row)."""
+        n = self.channels * self.frame_width
+        if self.residue_dtype == np.uint32:
+            if n % 8:
+                raise ValueError("p12 emit needs a row width divisible by 8")
+            return 3 * n // 8
+        return n
+
+    def _entry(self, residue: np.ndarray, variant: str):
+        """The C entry for the residue buffer's dtype; variant is "" (one
+        stream), "_batch" or "_batch_v"."""
+        suffix = _RESIDUE_CT[residue.dtype][0]
+        return getattr(self._lib, f"lt_decode_chunk{variant}{suffix}")
+
+    def _frame_layout(self, T: int) -> dict:
+        """name -> (shape after the lead axes, dtype) of the frames."""
+        Cn, P = self.channels, self.max_posts
+        Om = max(self.f0_order_max, 1)
+        return {
+            "mode": ((T,), np.int32),
+            "prev_flag": ((T,), bool),
+            "next_flag": ((T,), bool),
+            "valid": ((T,), bool),
+            # flat rows: [T, C*W] logical, [T, 3*C*W/8] u32 for p12
+            "residue": ((T, self._residue_row_width()), self.residue_dtype),
+            "f_used": ((T, Cn), bool),
+            "f1_ys": ((T, Cn, P), np.int32),
+            "f1_flags": ((T, Cn, P), bool),
+            "f0_cosc": ((T, Cn, Om), np.float32),
+            "f0_amp": ((T, Cn), np.float32),
+        }
+
+    def frame_buffers(self, T: int, lead: tuple = ()) -> dict:
+        """Zeroed frame arrays of shape [*lead, T, ...] (the layout of
+        models.decoder.pack_frames)."""
+        return {k: np.zeros(lead + shape, dt)
+                for k, (shape, dt) in self._frame_layout(T).items()}
+
+    def _frame_args(self, fr: dict, status: np.ndarray) -> list:
+        """The frame outputs of an lt_decode_chunk* call, after checking
+        that each buffer is what the C side writes: contiguous, of the
+        layout's dtype and of the status' [..., T] lead. numpy bools are one
+        byte, so uint8 views alias them (the C side writes 0/1)."""
+        for k, (shape, dt) in self._frame_layout(status.shape[-1]).items():
+            a = fr[k]
+            if (a.shape != status.shape[:-1] + shape or a.dtype != dt
+                    or not a.flags.c_contiguous):
+                raise ValueError(f"frame buffer {k}: {a.dtype}{a.shape} "
+                                 f"(contiguous {a.flags.c_contiguous}), "
+                                 f"expected {np.dtype(dt)}"
+                                 f"{status.shape[:-1] + shape}")
+        rptr = _ptr(fr["residue"], _RESIDUE_CT[fr["residue"].dtype][1])
+        return [_ptr(fr["mode"], C.c_int32), _u8(fr["prev_flag"]),
+                _u8(fr["next_flag"]), _u8(status), rptr, _u8(fr["f_used"]),
+                _ptr(fr["f1_ys"], C.c_int32), _u8(fr["f1_flags"]),
+                _ptr(fr["f0_cosc"], C.c_float), _ptr(fr["f0_amp"], C.c_float),
+                int(self.frame_width)]
+
+    def decode_chunk(self, packets: list[bytes], chunk: int | None = None,
+                     out: dict | None = None):
+        """Entropy-decode packets into frames (padded to ``chunk``) and a
+        status array (0 ok, 1 header packet, 2 bad). With ``out`` (a
+        contiguous frame-buffer dict) the frames are written in place."""
+        T = chunk if chunk is not None else len(packets)
+        n = len(packets)
+        if n > T:
+            raise ValueError(f"{n} packets for a chunk of {T}")
+        fr = out if out is not None else self.frame_buffers(T)
+        status = np.zeros(T, np.uint8)
+        if n == 0:
+            return fr, status
+        buf = np.frombuffer(b"".join(packets), dtype=np.uint8)
+        lens = np.array([len(p) for p in packets], dtype=np.uint64)
+        offs = np.zeros(n, dtype=np.uint64)
+        offs[1:] = np.cumsum(lens)[:-1]
+        fn = self._entry(fr["residue"], "")
+        fn(self._h, _u8(buf), _ptr(offs, C.c_uint64), _ptr(lens, C.c_uint64),
+           n, *self._frame_args(fr, status))
+        fr["valid"][:n] = status[:n] == 0
+        return fr, status
+
+    def _batch_valid(self, out: dict, status, counts) -> None:
+        T = status.shape[1]
+        valid = status == 0
+        valid[np.arange(T)[None, :] >= counts[:, None]] = False
+        out["valid"][...] = valid
+
+    def decode_chunk_batch(self, streams: list[list[bytes]], chunk: int,
+                           out: dict, threads: int = 1) -> np.ndarray:
+        """Entropy-decode a stream batch in one native call, ``threads``
+        worker threads over the streams. ``out``: frame buffers with lead
+        (S,); returns the status [S, T]. Slots past a stream's packets keep
+        stale contents; ``valid`` (set here) masks them."""
+        S, T = len(streams), chunk
+        status = np.zeros((S, T), np.uint8)
+        offs = np.zeros(S * T, np.uint64)
+        lens = np.zeros(S * T, np.uint64)
+        counts = np.zeros(S, np.int32)
+        chunks: list[bytes] = []
+        pos = 0
+        for s, packets in enumerate(streams):
+            n = min(len(packets), T)
+            counts[s] = n
+            if not n:
+                continue
+            chunks.extend(packets[:n])
+            ln = np.fromiter(map(len, packets[:n]), np.uint64, n)
+            lens[s * T: s * T + n] = ln
+            offs[s * T: s * T + n] = pos + np.cumsum(ln) - ln
+            pos += int(ln.sum())
+        buf = (np.frombuffer(b"".join(chunks), dtype=np.uint8) if pos
+               else np.zeros(1, np.uint8))
+        fn = self._entry(out["residue"], "_batch")
+        fn(self._h, _u8(buf), _ptr(offs, C.c_uint64), _ptr(lens, C.c_uint64),
+           _ptr(counts, C.c_int32), S, T, *self._frame_args(out, status),
+           int(threads))
+        self._batch_valid(out, status, counts)
+        return status
+
+    def decode_chunk_batch_view(self, bufs: np.ndarray, offs: np.ndarray,
+                                lens: np.ndarray, counts: np.ndarray,
+                                out: dict, threads: int = 1) -> np.ndarray:
+        """Zero-copy batch entry: the packets stay in their demux blobs.
+        ``bufs``: uint64 [S] base addresses of the blobs (the caller keeps
+        them alive); ``offs``/``lens``: uint64 [S, T] byte spans into each;
+        ``counts``: int32 [S]."""
+        S, T = offs.shape
+        for name, a, dt, shape in (("bufs", bufs, np.uint64, (S,)),
+                                   ("offs", offs, np.uint64, (S, T)),
+                                   ("lens", lens, np.uint64, (S, T)),
+                                   ("counts", counts, np.int32, (S,))):
+            if (a.dtype != dt or a.shape != shape
+                    or not a.flags.c_contiguous):
+                raise ValueError(f"{name}: {a.dtype}{a.shape}, expected "
+                                 f"contiguous {np.dtype(dt)}{shape}")
+        if (counts < 0).any() or (counts > T).any():
+            raise ValueError(f"counts outside [0, {T}]")
+        status = np.zeros((S, T), np.uint8)
+        fn = self._entry(out["residue"], "_batch_v")
+        fn(self._h, bufs.ctypes.data_as(C.POINTER(C.c_void_p)),
+           _ptr(offs, C.c_uint64), _ptr(lens, C.c_uint64),
+           _ptr(counts, C.c_int32), S, T, *self._frame_args(out, status),
+           int(threads))
+        self._batch_valid(out, status, counts)
+        return status
+
+
+class PacketSpans:
+    """A stream's audio packets as spans into one shared blob: ``data``
+    uint8 [bytes], ``offs``/``lens`` uint64 [packets]. The zero-copy batch
+    front-end (decode_chunk_batch_view) slices these per chunk instead of
+    joining packet bytes."""
+
+    __slots__ = ("data", "offs", "lens")
+
+    def __init__(self, data, offs, lens):
+        self.data = np.ascontiguousarray(data, dtype=np.uint8)
+        self.offs = np.ascontiguousarray(offs, dtype=np.uint64)
+        self.lens = np.ascontiguousarray(lens, dtype=np.uint64)
+
+    def __len__(self):
+        return len(self.offs)
+
+    def __getitem__(self, key):
+        if isinstance(key, slice):  # chunk loops slice streams uniformly
+            return PacketSpans(self.data, self.offs[key], self.lens[key])
+        o, ln = int(self.offs[key]), int(self.lens[key])
+        return self.data[o: o + ln].tobytes()
+
+    @staticmethod
+    def from_bytes(packets: list) -> "PacketSpans":
+        lens = np.fromiter(map(len, packets), np.uint64, len(packets))
+        blob = (np.frombuffer(b"".join(packets), dtype=np.uint8) if packets
+                else np.zeros(1, np.uint8))
+        return PacketSpans(blob, np.cumsum(lens) - lens, lens)
+
+
+def _demux(data: bytes):
+    """(blob, lens, serials, flags, absgp, page granules) of every packet
+    of an Ogg byte stream, from one native demux."""
+    lib = _load()
+    src = np.frombuffer(data, dtype=np.uint8)
+    h = lib.lt_ogg_new(_u8(src), len(data))
+    if not h:
+        raise OggError("native ogg demux failed (allocation)")
+    try:
+        count = lib.lt_ogg_packet_count(h)
+        lens = np.zeros(count, np.uint64)
+        serials = np.zeros(count, np.uint32)
+        flags = np.zeros(count, np.uint8)
+        absgp = np.zeros(count, np.uint64)
+        pgran = np.zeros(count, np.uint64)
+        lib.lt_ogg_packet_meta(h, _ptr(lens, C.c_uint64),
+                               _ptr(serials, C.c_uint32), _u8(flags),
+                               _ptr(absgp, C.c_uint64),
+                               _ptr(pgran, C.c_uint64))
+        blob = np.zeros(max(int(lens.sum()), 1), np.uint8)
+        lib.lt_ogg_packet_data(h, _u8(blob))
+    finally:
+        lib.lt_ogg_free(h)
+    return blob, lens, serials, flags, absgp, pgran
+
+
+def demux_spans(data: bytes):
+    """Demux a whole Ogg byte stream -> (PacketSpans over all packets,
+    serials u32 [n], flags u8 [n], absgp u64 [n], page granules u64 [n]);
+    the packet bytes stay in one blob. Flags: bit 0 first in stream, 1 last
+    in stream, 2 first in page, 3 last in page, 4 has absgp, 5 has a page
+    granule, 6 began on an earlier page."""
+    blob, lens, serials, flags, absgp, pgran = _demux(data)
+    return (PacketSpans(blob, np.cumsum(lens) - lens, lens), serials, flags,
+            absgp, pgran)
+
+
+class NativePacket:
+    """One demuxed packet, with the fields of ``ogg.Packet``."""
+
+    __slots__ = ("data", "stream_serial", "first_in_stream", "last_in_stream",
+                 "absgp_page", "first_in_page", "last_in_page",
+                 "page_granule", "spans_pages")
+
+    def __init__(self, data, serial, flags, absgp, pgran):
+        self.data = data
+        self.stream_serial = int(serial)
+        self.first_in_stream = bool(flags & 1)
+        self.last_in_stream = bool(flags & 2)
+        self.first_in_page = bool(flags & 4)
+        self.last_in_page = bool(flags & 8)
+        self.absgp_page = int(absgp) if flags & 16 else None
+        self.page_granule = int(pgran) if flags & 32 else None
+        self.spans_pages = bool(flags & 64)
+
+
+def demux(data: bytes) -> list[NativePacket]:
+    """Demux a whole Ogg byte stream -> its packets."""
+    blob, lens, serials, flags, absgp, pgran = _demux(data)
+    raw = blob.tobytes()
+    ends = np.cumsum(lens).tolist()
+    starts = [0] + ends[:-1]
+    return [NativePacket(raw[a:b], serials[i], flags[i], absgp[i], pgran[i])
+            for i, (a, b) in enumerate(zip(starts, ends))]
+
+
+class NativePacketReader:
+    """``ogg.PacketReader``'s surface (read_packet, read_packet_expected,
+    delete_unread_packets, seek_absgp) over the native demuxer, which
+    parses the whole stream up front."""
+
+    def __init__(self, data: bytes):
+        self._pcks = demux(data)
+        self._i = 0
+
+    def read_packet(self) -> NativePacket | None:
+        if self._i >= len(self._pcks):
+            return None
+        p = self._pcks[self._i]
+        self._i += 1
+        return p
+
+    def read_packet_expected(self) -> NativePacket:
+        p = self.read_packet()
+        if p is None:
+            raise OggError("unexpected end of ogg stream")
+        return p
+
+    def delete_unread_packets(self) -> None:
+        """Nothing to drop: the packets are reassembled up front, and
+        header pages never share a page with audio in valid streams."""
+
+    def seek_absgp(self, absgp: int, serial: int | None = None) -> None:
+        """Position at the start of the earliest page whose granule is
+        >= absgp (the ogg crate's seek_absgp)."""
+        target = None
+        last_match = 0
+        for i, p in enumerate(self._pcks):
+            if p.page_granule is None:
+                continue
+            if serial is not None and p.stream_serial != serial:
+                continue
+            if p.page_granule >= absgp:
+                target = i
+                break
+            last_match = i
+        if target is None:
+            target = last_match
+        # back to the first packet of that page
+        while target > 0 and not self._pcks[target - 1].last_in_page:
+            target -= 1
+        # a reader positioned at this page cannot reassemble a packet that
+        # began on an earlier page and drops that head (the ogg crate's
+        # semantics); later spanning packets begin at or after the
+        # position and reassemble, so exactly one is skipped
+        if target < len(self._pcks) and self._pcks[target].spans_pages:
+            target += 1
+        self._i = target

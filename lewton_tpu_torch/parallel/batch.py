@@ -196,8 +196,10 @@ class BatchDecoder:
 
     The serving-shaped API: feed each stream's packets, get PCM per stream.
     Streams are padded to a common packet count; per-packet lengths recover
-    the ragged output. ``mesh=`` (multi-device sharding) is not in the port
-    yet and raises."""
+    the ragged output. The host front-end is :class:`StreamDecoder`'s
+    (``raw_headers`` and ``frontend`` as there: the native library unless
+    the caller asks for the Python one). ``mesh=`` (multi-device sharding)
+    is not in the port yet and raises."""
 
     def __init__(self, ident, setup, chunk: int = 64, mesh=None,
                  raw_headers=None, frontend: str = "auto", scan: int = 1,
@@ -221,6 +223,9 @@ class BatchDecoder:
         self._bf_host = self.cs.mode_blockflag.cpu().numpy()
         self._pinned: dict = {}  # (slot, array index) -> pinned bytes
         self._put_done: dict = {}  # slot -> event after its last copies
+        self._frames: dict = {}  # (slot, N) -> native frame buffers
+        self._pinned_d2h: dict = {}  # slot -> pinned bytes of the PCM
+        self._d2h_done: dict = {}  # slot -> event after its last copy
         self._d2h_stream = None
         #: accounting of the last decode_streams* call: bytes shipped
         #: host->device and device->host, the residue transport, and the
@@ -233,6 +238,9 @@ class BatchDecoder:
         S = len(streams)
         max_t = max(len(p) for p in streams)
         C = self.cs.channels
+        # the frames go to the core as they are (no packed transport), so
+        # the native emit is the plain i16/f32 residue
+        self._sd.set_residue_transport("default")
         carry = _stream_carry(self.cs, S)
         self.last_stats = {"h2d_bytes": 0, "d2h_bytes": 0}
         outs: list[list[np.ndarray]] = [[] for _ in range(S)]
@@ -261,8 +269,7 @@ class BatchDecoder:
         not block the host."""
         if self.device.type != "cuda":
             return tuple(torch.from_numpy(a) for a in arrays)
-        if slot in self._put_done:
-            self._put_done[slot].synchronize()
+        self._wait_put(slot)
         dev = []
         for j, a in enumerate(arrays):
             key = (slot, j)
@@ -279,30 +286,65 @@ class BatchDecoder:
         self._put_done[slot].record()
         return tuple(dev)
 
-    def _to_host_async(self, pcm: torch.Tensor):
-        """Start the device-to-host copy of ``pcm`` into pinned memory on a
-        side stream, ordered after the kernels that write it; returns
-        (host tensor, event that marks the copy done)."""
+    def _wait_put(self, slot: int) -> None:
+        """Block until the host-to-device copies that last read ``slot``
+        have finished."""
+        if slot in self._put_done:
+            self._put_done[slot].synchronize()
+
+    def _frame_slot(self, slot: int, N: int, S: int) -> dict:
+        """The host frame buffers [N, S, T, ...] of ``slot``, kept per
+        (slot, N) and rewritten only after the slot's last host-to-device
+        copies have finished. On the Python front-end the group gets fresh
+        buffers."""
+        if self._sd._native is None:
+            zero = self._sd.entropy_chunk([])
+            return {k: np.zeros((N, S) + v.shape, v.dtype)
+                    for k, v in zero.items()}
+        self._wait_put(slot)
+        buf = self._frames.get((slot, N))
+        if (buf is None or buf["mode"].shape[1] != S
+                or buf["residue"].dtype != self._sd._native.residue_dtype):
+            buf = self._sd._native.frame_buffers(self.chunk, lead=(N, S))
+            self._frames[(slot, N)] = buf
+        return buf
+
+    def _to_host_async(self, pcm: torch.Tensor, slot: int):
+        """Start the device-to-host copy of ``pcm`` into the pinned buffer
+        of ``slot`` on a side stream, ordered after the kernels that write
+        it; returns (host tensor, event that marks the copy done). The
+        buffer is rewritten only after that event has fired and the caller
+        has read the group out of it (:meth:`_finish`)."""
         if self.device.type != "cuda":
             return pcm, None
         if self._d2h_stream is None:
             self._d2h_stream = torch.cuda.Stream(self.device)
+        if slot in self._d2h_done:
+            self._d2h_done.pop(slot).synchronize()
+        nbytes = pcm.numel() * pcm.element_size()
+        host = self._pinned_d2h.get(slot)
+        if host is None or host.numel() < nbytes:
+            host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+            self._pinned_d2h[slot] = host
+        host = host[:nbytes].view(pcm.dtype).reshape(pcm.shape)
         done = torch.cuda.Event()
         done.record()
-        host = torch.empty(pcm.shape, dtype=pcm.dtype, pin_memory=True)
         with torch.cuda.stream(self._d2h_stream):
             self._d2h_stream.wait_event(done)
             host.copy_(pcm, non_blocking=True)
             pcm.record_stream(self._d2h_stream)
             copied = torch.cuda.Event()
             copied.record(self._d2h_stream)
+        self._d2h_done[slot] = copied
         return host, copied
 
-    def decode_streams_i16(self, streams: list[list[bytes]],
+    def decode_streams_i16(self, streams: list,
                            compact: str = "device",
                            scan: int | None = None,
                            transport: str = "auto") -> list[np.ndarray]:
         """Serving path: returns interleaved i16 PCM [total, C] per stream.
+        A stream is a list of packets (bytes) or, on the native front-end,
+        a ``native.PacketSpans``.
 
         ``compact="device"``: PCM is compacted and converted to i16 on the
         device (the f32 path and ``compact_i16``), so the device-to-host
@@ -315,11 +357,15 @@ class BatchDecoder:
 
         ``transport``: the residue's host-to-device encoding, "i16", "p12"
         (12-bit packed when the setup's static bound allows it; see
-        pack12.py) or "auto" (p12 on a slow measured link, i16 on the CPU).
+        pack12.py; the native front-end emits the packed planes as it
+        decodes) or "auto" (p12 on a slow measured link, i16 on the CPU).
 
         Pipelined: each group's device work and device-to-host copy run
         while the host entropy-decodes the next group; the previous group's
-        PCM is materialised once the next group is enqueued."""
+        PCM is copied into the outputs once the next group is enqueued. The
+        host frame buffers and the pinned buffers of both directions are
+        kept per slot of a double buffer and reused across groups and
+        calls."""
         S = len(streams)
         max_t = max(len(p) for p in streams)
         C, n1 = self.cs.channels, self.cs.n1
@@ -328,6 +374,7 @@ class BatchDecoder:
         if transport == "auto":
             transport = "p12" if p12_auto(self.cs, self.device) else "i16"
         use_p12 = transport == "p12" and pack12_supported(self.cs)
+        self._sd.set_residue_transport("p12" if use_p12 else "default")
         self.last_stats = {"h2d_bytes": 0, "d2h_bytes": 0,
                            "transport": "p12" if use_p12 else "i16"}
         carry = _stream_carry(self.cs, S)
@@ -343,14 +390,19 @@ class BatchDecoder:
                 n //= 2
             groups.append(list(range(ci, ci + n)))
             ci += n
-        #: per group: (host pcm, copy event, totals [N, S], lens | None)
-        chunks: list = []
-        zero = self._sd.entropy_chunk([])
+        # outputs sized by each stream's most samples (3 n1/4 a packet) and
+        # cut to the decoded length at the end: np.empty leaves the pages
+        # past the audio untouched
+        outs = [np.empty((len(p) * (3 * n1 // 4), C), np.int16)
+                for p in streams]
+        offs = np.zeros(S, np.int64)
+        #: the group whose device-to-host copy is in flight: [host pcm,
+        #: copy event, totals [N, S], lens [N, S, T] | None]
+        pending = None
         st.lap("frontend")
         for gi, group in enumerate(groups):
-            N = len(group)
-            buf = {k: np.zeros((N, S) + v.shape, v.dtype)
-                   for k, v in zero.items()}
+            N, slot = len(group), gi % 2
+            buf = self._frame_slot(slot, N, S)
             lens_all = np.zeros((N, S, self.chunk), np.int64)
             for n, ci in enumerate(group):
                 t0 = ci * self.chunk
@@ -366,9 +418,16 @@ class BatchDecoder:
             cap = int(-(-(int(totals.max()) + n1) // 8192) * 8192)
             residue, bb, ib, fb, shapes = pack_frame_buffers(fr_np)
             if use_p12:  # the words travel as int32 (see pack12.py)
-                residue = pack12_np(residue).view(np.int32)
+                if residue.dtype == np.uint32:
+                    # the native front-end emitted the planes: the device
+                    # unpacks to the logical residue width
+                    logical = residue.shape[:-1] + (residue.shape[-1] * 8 // 3,)
+                    shapes = (("residue", logical),) + shapes[1:]
+                else:
+                    residue = pack12_np(residue)
+                residue = residue.view(np.int32)
             st.lap("frontend")
-            dev = self._put(gi % 2, (residue, bb, ib, fb))
+            dev = self._put(slot, (residue, bb, ib, fb))
             self.last_stats["h2d_bytes"] += sum(
                 int(a.numel() * a.element_size()) for a in dev)
             st.lap("h2d", device_work=True)
@@ -385,54 +444,46 @@ class BatchDecoder:
             st.lap("device", device_work=True)
             self.last_stats["d2h_bytes"] += int(pcm.numel()
                                                 * pcm.element_size())
-            host, copied = self._to_host_async(pcm)
-            chunks.append([host, copied, totals.reshape(N, S),
-                           lens.reshape(N, S, -1) if compact == "host"
-                           else None])
-            # materialise the previous group: its copy had this group's
+            host, copied = self._to_host_async(pcm, slot)
+            # finish the previous group: its copy had this group's
             # front-end time to drain
-            if len(chunks) >= 2:
-                self._materialise(chunks[-2])
+            if pending is not None:
+                self._finish(pending, outs, offs, st)
+            pending = [host, copied, totals.reshape(N, S),
+                       lens.reshape(N, S, -1) if compact == "host" else None]
             st.lap("d2h", device_work=True)
-        for c in chunks:
-            self._materialise(c)
-        st.lap("d2h")
-        # exact-size outputs, filled with one copy pass per chunk
-        sums = np.zeros(S, np.int64)
-        for _, _, totals, _ in chunks:
-            sums += totals.sum(axis=0)
-        outs = [np.empty((int(sums[s]), C), np.int16) for s in range(S)]
-        offs = np.zeros(S, np.int64)
-        for a, _, totals, lens in chunks:
-            if a.ndim == len(totals.shape) + 1:  # single chunk: add N=1
-                a = a[None]
-            for n in range(totals.shape[0]):
-                an = a[n]
-                if lens is None:  # device-compacted [S, cap, C]
-                    for s in range(S):
-                        m = int(totals[n, s])
-                        outs[s][int(offs[s]): int(offs[s]) + m] = an[s, :m]
-                else:  # padded flat [S, T, C*outw]: slice + interleave
-                    T = an.shape[1]
-                    an = an.reshape(S, T, C, -1)
-                    outw = an.shape[3]
-                    keep = (np.arange(outw)[None, :]
-                            < lens[n][:, :, None])  # [S, T, w]
-                    for s in range(S):
-                        m = int(totals[n, s])
-                        outs[s][int(offs[s]): int(offs[s]) + m] = \
-                            an[s].transpose(0, 2, 1)[keep[s]]
-                offs += totals[n]
-        st.lap("compact")
+        if pending is not None:
+            self._finish(pending, outs, offs, st)
         self.last_stats["stages"] = st.result()
-        return outs
+        return [o[: int(offs[s])] for s, o in enumerate(outs)]
 
-    @staticmethod
-    def _materialise(entry: list) -> None:
-        """Wait for a group's device-to-host copy and keep its numpy view."""
-        host, copied = entry[0], entry[1]
+    def _finish(self, entry: list, outs: list, offs: np.ndarray,
+                st: _Stages) -> None:
+        """Wait for a group's device-to-host copy, then copy its samples
+        into the outputs at ``offs`` (advanced here)."""
+        host, copied, totals, lens = entry
         if copied is not None:
             copied.synchronize()
-            entry[1] = None
-        if isinstance(host, torch.Tensor):
-            entry[0] = host.numpy()
+        a = host.numpy() if isinstance(host, torch.Tensor) else host
+        st.lap("d2h")
+        S, C = len(outs), self.cs.channels
+        if a.ndim == len(totals.shape) + 1:  # single chunk: add N=1
+            a = a[None]
+        for n in range(totals.shape[0]):
+            an = a[n]
+            if lens is None:  # device-compacted [S, cap, C]
+                for s in range(S):
+                    m = int(totals[n, s])
+                    outs[s][int(offs[s]): int(offs[s]) + m] = an[s, :m]
+            else:  # padded flat [S, T, C*outw]: slice + interleave
+                T = an.shape[1]
+                an = an.reshape(S, T, C, -1)
+                keep = (np.arange(an.shape[3])[None, :]
+                        < lens[n][:, :, None])  # [S, T, w]
+                for s in range(S):
+                    m = int(totals[n, s])
+                    outs[s][int(offs[s]): int(offs[s]) + m] = \
+                        an[s].transpose(0, 2, 1)[keep[s]]
+            offs += totals[n]
+        st.lap("compact")
+

@@ -26,6 +26,8 @@ import time
 import numpy as np
 import torch
 
+from .. import native
+
 __all__ = ["pack12_supported", "pack12_np", "unpack12",
            "probed_h2d_mb_s", "p12_auto", "P12_AUTO_MAX_MB_S"]
 
@@ -79,8 +81,12 @@ def pack12_supported(cs) -> bool:
 def pack12_np(arr: np.ndarray) -> np.ndarray:
     """Pack i16 values in [-2048, 2047] along the last axis: [..., 8K] i16
     -> [..., 3K] u32 (three K-wide planes, see the module docstring).
-    Raises on a value out of range instead of truncating it."""
+    Raises on a value out of range instead of truncating it. Runs the host
+    library's C loop once this process has loaded it (the same words; the
+    numpy form below makes several passes over the array)."""
     assert arr.dtype == np.int16 and arr.shape[-1] % 8 == 0
+    if native.available():
+        return native.pack12(arr)
     if arr.size and (arr.min() < -2048 or arr.max() > 2047):
         raise ValueError("pack12: residue value outside [-2048, 2047]")
     K = arr.shape[-1] // 8

@@ -32,6 +32,7 @@ from lewton_tpu.models.decoder import StreamDecoder as JStreamDecoder
 from lewton_tpu.ogg import PacketReader as JPacketReader
 from lewton_tpu.parallel import pack12 as jpack12
 from lewton_tpu.parallel.batch import BatchDecoder as JBatchDecoder
+from lewton_tpu_torch import native
 from lewton_tpu_torch.inside_ogg import read_headers
 from lewton_tpu_torch.models.decoder import (StreamDecoder,
                                              synthesize_spectra_tapped)
@@ -47,6 +48,8 @@ from test_torch_frontend import stream_bytes
 torch.set_num_threads(1)
 
 CHUNK = 16
+#: the port's two host front-ends
+FRONTENDS = ["python", "native"]
 
 
 def _stream(pkg_reader, pkg_read_headers, name):
@@ -77,17 +80,25 @@ def _f32_bound(sd: StreamDecoder, packets) -> float:
     return 2.0 * worst
 
 
+def _raw(headers) -> tuple:
+    return headers.raw_ident, headers.raw_setup
+
+
+@pytest.mark.parametrize("frontend", FRONTENDS)
 @pytest.mark.parametrize("with_i16", [True, False])
 @pytest.mark.parametrize("name", ["stereo_44k_q3", "ch6_44k_q3",
                                   "mono_16k_q3"])
-def test_stream_decoder_matches_reference(name, with_i16):
-    """decode_packets_i16 / decode_packets over three chunks against the
-    reference's StreamDecoder(frontend="python"), packet by packet."""
+def test_stream_decoder_matches_reference(name, with_i16, frontend):
+    """decode_packets_i16 / decode_packets over three chunks, on the port's
+    Python and native front-ends, against the reference's
+    StreamDecoder(frontend="python"), packet by packet."""
     headers, pcks = _stream(PacketReader, read_headers, name)
     j_headers, _ = _stream(JPacketReader, j_read_headers, name)
     pcks = pcks[:2 * CHUNK + 7]
     sd = StreamDecoder(headers.ident, headers.setup, chunk=CHUNK,
+                       raw_headers=_raw(headers), frontend=frontend,
                        device="cpu")
+    assert (sd._native is not None) == (frontend == "native")
     ref = JStreamDecoder(j_headers.ident, j_headers.setup, chunk=CHUNK,
                          frontend="python")
     if with_i16:
@@ -163,11 +174,14 @@ def test_entry_points_default_to_the_card():
 
 
 def test_no_native_front_end_and_no_mesh():
-    headers, _ = _stream(PacketReader, read_headers, "tiny_44k")
+    """frontend="native" takes the port's library and decodes; without the
+    raw header packets it raises ValueError; mesh= is not in the port."""
+    headers, pcks = _stream(PacketReader, read_headers, "tiny_44k")
     hs = (headers.ident, headers.setup)
-    with pytest.raises(RuntimeError, match="not built"):
-        StreamDecoder(*hs, raw_headers=(headers.raw_ident, headers.raw_setup),
-                      frontend="native", device="cpu")
+    sd = StreamDecoder(*hs, raw_headers=_raw(headers), frontend="native",
+                       device="cpu")
+    assert isinstance(sd._native, native.NativeStream)
+    assert sum(p.shape[1] for p in sd.decode_packets_i16(pcks)) > 0
     with pytest.raises(ValueError, match="raw_headers"):
         StreamDecoder(*hs, frontend="native", device="cpu")
     with pytest.raises(NotImplementedError):
@@ -201,26 +215,29 @@ def batch():
     return headers, streams, ref, {}
 
 
-def _port_batch(batch, combo):
+def _port_batch(batch, combo, frontend="python"):
     headers, streams, _, cache = batch
-    if combo not in cache:
+    if (combo, frontend) not in cache:
         compact, scan, transport = combo
         dec = BatchDecoder(headers.ident, headers.setup, chunk=CHUNK,
-                           scan=scan, device="cpu")
-        cache[combo] = (dec.decode_streams_i16(
+                           scan=scan, raw_headers=_raw(headers),
+                           frontend=frontend, device="cpu")
+        cache[(combo, frontend)] = (dec.decode_streams_i16(
             streams, compact=compact, transport=transport), dec.last_stats)
-    return cache[combo]
+    return cache[(combo, frontend)]
 
 
+@pytest.mark.parametrize("frontend", FRONTENDS)
 @pytest.mark.parametrize("combo", COMBOS,
                          ids=lambda c: "-".join(map(str, c)))
-def test_batch_decoder_i16(batch, combo):
-    """Each combination within 1 LSB of the reference (in the two
-    combinations it ran, the other six held to them), a scan group bit for
-    bit equal to one chunk at a time, and the transport's bytes as the
-    encoding sets them."""
+def test_batch_decoder_i16(batch, combo, frontend):
+    """Each combination, on either front-end, within 1 LSB of the reference
+    (in the two combinations it ran, the other six held to them), a scan
+    group bit for bit equal to one chunk at a time and the native
+    front-end's PCM to the Python front-end's, and the transport's bytes as
+    the encoding sets them."""
     compact, scan, transport = combo
-    outs, stats = _port_batch(batch, combo)
+    outs, stats = _port_batch(batch, combo, frontend)
     _, streams, ref, _ = batch
     assert stats["transport"] == transport
     for want in ref.values():
@@ -228,9 +245,12 @@ def test_batch_decoder_i16(batch, combo):
         for g, w in zip(outs, want):
             assert g.dtype == np.int16 and _lsb(g, w) <= 1
     if scan > 1:
-        for g, w in zip(outs, _port_batch(batch, (compact, 1, transport))[0]):
+        for g, w in zip(outs, _port_batch(batch, (compact, 1, transport),
+                                          frontend)[0]):
             assert np.array_equal(g, w)
-    i16_stats = _port_batch(batch, (compact, scan, "i16"))[1]
+    for g, w in zip(outs, _port_batch(batch, combo)[0]):
+        assert np.array_equal(g, w)
+    i16_stats = _port_batch(batch, (compact, scan, "i16"), frontend)[1]
     assert stats["d2h_bytes"] == i16_stats["d2h_bytes"] > 0
     stages = stats["stages"]
     assert stages["wall"] > 0 and abs(sum(
@@ -245,7 +265,7 @@ def test_batch_decode_streams_f32(batch):
     streams: the i16 conversion of the one within 1 LSB of the other."""
     headers, streams, _, _ = batch
     dec = BatchDecoder(headers.ident, headers.setup, chunk=CHUNK,
-                       device="cpu")
+                       raw_headers=_raw(headers), device="cpu")
     f32 = dec.decode_streams(streams)
     i16 = _port_batch(batch, ("device", 1, "i16"))[0]
     for f, g in zip(f32, i16):

@@ -6,8 +6,11 @@ The machine with the card has no JAX, so every module of
 whose import hook refuses ``jax`` and ``lewton_tpu``; the same subprocess
 decodes a small chunk on the CPU through every path and a committed gate
 stream from the file through ``OggStreamReader.read_all_i16`` (within
-+/-2 LSB of its libvorbis golden), and checks that no kernel was launched or
-built.
++/-2 LSB of its libvorbis golden) on the native front-end, and checks that
+no kernel was launched or built, and that the one host library it loaded is
+the port's own, built under ``build/lewton_tpu_torch/`` from
+``lewton_tpu_torch/native/``, never the reference's
+``lewton_tpu/native/liblewton_host.so``.
 """
 
 import os
@@ -48,7 +51,8 @@ assert {"lewton_tpu_torch.ops.coupling", "lewton_tpu_torch.ops.synth_kernel",
         "lewton_tpu_torch.audio", "lewton_tpu_torch.samples",
         "lewton_tpu_torch.ogg.demux", "lewton_tpu_torch.inside_ogg",
         "lewton_tpu_torch.parallel.pack12",
-        "lewton_tpu_torch.parallel.batch"} <= set(mods)
+        "lewton_tpu_torch.parallel.batch",
+        "lewton_tpu_torch.native"} <= set(mods)
 
 import torch
 from lewton_tpu_torch import _build
@@ -95,11 +99,19 @@ for kw, fused, split, own in (
         assert all(torch.equal(a, b) for a, b in zip(c, c_p))
 imdct.USE_DCT4_SPLIT = False
 
-# a committed gate stream, file to PCM, against its libvorbis golden
+# a committed gate stream, file to PCM on the native front-end, against
+# its libvorbis golden
+import os
 import numpy as np
+from lewton_tpu_torch import native
 from lewton_tpu_torch.inside_ogg import OggStreamReader
-out = OggStreamReader("tests/data/torch_gate/stereo_44k_q3.ogg",
-                      device="cpu").read_all_i16()
+from lewton_tpu_torch.models.decoder import StreamDecoder
+assert not native.available()
+rdr = OggStreamReader("tests/data/torch_gate/stereo_44k_q3.ogg", device="cpu")
+assert isinstance(rdr.rdr, native.NativePacketReader)
+assert StreamDecoder(rdr.ident_hdr, rdr.setup_hdr,
+                     raw_headers=rdr._raw_headers, device="cpu")._native
+out = rdr.read_all_i16()
 with np.load("tests/data/torch_gate/stereo_44k_q3.golden.npz") as z:
     golden = z["pcm"]
 assert out.shape == golden.shape
@@ -109,6 +121,13 @@ assert (floor_kernel.LAUNCHES, floor_kernel.LAUNCHES_FLAT,
         overlap_kernel.LAUNCHES_SPLIT, overlap_kernel.LAUNCHES_AUDIO,
         synth_kernel.LAUNCHES) == (0,) * 7
 assert _build._lib is None
+host = os.path.realpath(_build._host_lib._name)
+assert host.startswith(os.path.realpath(_build.BUILD_DIR) + os.sep), host
+assert os.path.basename(host).startswith("liblewton_host_"), host
+with open("/proc/self/maps") as f:
+    libs = {line.split()[-1] for line in f if "liblewton_host" in line}
+assert libs == {host}, libs
+assert "lewton_tpu/native" not in "".join(libs)
 assert not any(m.split(".")[0] in REFUSED for m in sys.modules)
 print("OK", len(mods))
 '''

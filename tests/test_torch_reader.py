@@ -11,6 +11,9 @@
   ``chained_44k``: the same packet shapes and positions exactly, samples
   within 1 LSB (the GEMMs' sum order), and a restored state replaying the
   port's own samples bit for bit.
+
+The port's reads run on each of its host front-ends: the native library
+(the default: native demux and entropy decode) and the Python one.
 """
 
 import hashlib
@@ -22,7 +25,10 @@ import torch
 
 from lewton_tpu.inside_ogg import OggStreamReader as JReader
 from lewton_tpu_torch.inside_ogg import OggStreamReader
-from test_torch_decoders import _lsb
+from lewton_tpu_torch.models.decoder import StreamDecoder
+from lewton_tpu_torch.native import NativePacketReader
+from lewton_tpu_torch.ogg import PacketReader
+from test_torch_decoders import FRONTENDS, _lsb
 from test_torch_frontend import GATE, GATE_DIR, MANIFEST, stream_bytes
 
 # one intra-op thread: the suite runs a pytest worker per core, and torch's
@@ -36,9 +42,25 @@ def golden(name: str) -> np.ndarray:
         return z["pcm"]
 
 
+def port_reader(data: bytes, frontend: str) -> OggStreamReader:
+    """The port's reader on its native front-end (the default: native demux
+    and entropy decode) or on its Python one (the Python PacketReader, and
+    StreamDecoders with frontend="python")."""
+    if frontend == "native":
+        r = OggStreamReader(data, device="cpu")
+        assert isinstance(r.rdr, NativePacketReader)
+        return r
+    r = OggStreamReader(PacketReader(data), device="cpu")
+    r._stream_decoder = lambda **kw: StreamDecoder(
+        r.ident_hdr, r.setup_hdr, raw_headers=r._raw_headers,
+        frontend="python", device=r.device, **kw)
+    return r
+
+
+@pytest.mark.parametrize("frontend", FRONTENDS)
 @pytest.mark.parametrize("name", GATE)
-def test_read_all_i16_matches_golden(name):
-    out = OggStreamReader(stream_bytes(name), device="cpu").read_all_i16()
+def test_read_all_i16_matches_golden(name, frontend):
+    out = port_reader(stream_bytes(name), frontend).read_all_i16()
     want = golden(name)
     assert out.dtype == np.int16 and out.shape == want.shape
     assert _lsb(out, want) <= 2
@@ -80,9 +102,9 @@ def test_gate_data_budget_and_coverage():
     assert set(MANIFEST["left_out"]) == {"long_44k_q2"}
 
 
-def _readers(name):
+def _readers(name, frontend):
     data = stream_bytes(name)
-    return OggStreamReader(data, device="cpu"), JReader(data, backend="jax")
+    return port_reader(data, frontend), JReader(data, backend="jax")
 
 
 def _same_packet(a, b) -> None:
@@ -91,12 +113,13 @@ def _same_packet(a, b) -> None:
         assert a.dtype == b.dtype and _lsb(a, b) <= 1
 
 
+@pytest.mark.parametrize("frontend", FRONTENDS)
 @pytest.mark.parametrize("name", ["tiny_44k", "chained_44k"])
-def test_per_packet_reads_match_reference(name):
+def test_per_packet_reads_match_reference(name, frontend):
     """read_dec_packet / read_dec_packet_itl packet by packet to the end of
     the stream (through the chained re-init on chained_44k), the granule
     after each packet, and read_all_planar_f32 of a fresh reader."""
-    mine, ref = _readers(name)
+    mine, ref = _readers(name, frontend)
     n, serials = 0, {mine.stream_serial}
     while True:
         fmt = "read_dec_packet_itl" if n % 3 == 2 else "read_dec_packet"
@@ -109,18 +132,19 @@ def test_per_packet_reads_match_reference(name):
         serials.add(mine.stream_serial)
         n += 1
     assert n > 5 and len(serials) == 1 + (name == "chained_44k")
-    mine, ref = _readers(name)
+    mine, ref = _readers(name, frontend)
     a, b = mine.read_all_planar_f32(), ref.read_all_planar_f32()
     assert a.dtype == np.float32 and a.shape == b.shape
     assert np.abs(a - b).max() <= 2.0 ** -15
 
 
+@pytest.mark.parametrize("frontend", FRONTENDS)
 @pytest.mark.parametrize("name,skip,seek", [("tiny_44k", 700, 1000),
                                             ("chained_44k", 33000, 20000)])
-def test_skip_and_seek_match_reference(name, skip, seek):
+def test_skip_and_seek_match_reference(name, skip, seek, frontend):
     """skip_samples_linear (into the second link on chained_44k), then the
     rest of the stream; seek_absgp_pg, then the rest of the stream."""
-    mine, ref = _readers(name)
+    mine, ref = _readers(name, frontend)
     (a, la), (b, lb) = (r.skip_samples_linear(skip) for r in (mine, ref))
     assert la == lb
     _same_packet(a, b)
@@ -129,7 +153,7 @@ def test_skip_and_seek_match_reference(name, skip, seek):
         _same_packet(a, b)
         if a is None:
             break
-    mine, ref = _readers(name)
+    mine, ref = _readers(name, frontend)
     mine.seek_absgp_pg(seek)
     ref.seek_absgp_pg(seek)
     n = 0
@@ -143,8 +167,9 @@ def test_skip_and_seek_match_reference(name, skip, seek):
     assert n > 0
 
 
+@pytest.mark.parametrize("frontend", FRONTENDS)
 @pytest.mark.parametrize("name", ["tiny_44k", "chained_44k"])
-def test_save_restore_matches_reference(name):
+def test_save_restore_matches_reference(name, frontend):
     """A state saved after a few packets and restored into a fresh reader
     at the same position replays the same samples bit for bit; the
     reference's saved carry, restored into the port's reader, continues
@@ -155,7 +180,7 @@ def test_save_restore_matches_reference(name):
         return reader
 
     k = 4
-    mine, ref = _readers(name)
+    mine, ref = _readers(name, frontend)
     for _ in range(k):
         mine.read_dec_packet()
         ref.read_dec_packet()
@@ -163,18 +188,18 @@ def test_save_restore_matches_reference(name):
     assert state.keys() == {"cur_absgp", "backend", "started", "torch"}
     nxt = [mine.read_dec_packet() for _ in range(3)]
     j_nxt = [ref.read_dec_packet() for _ in range(3)]
-    again = positioned(OggStreamReader(stream_bytes(name), device="cpu"), k)
+    again = positioned(port_reader(stream_bytes(name), frontend), k)
     again.restore_decode_state(state)
     for a, b in zip(nxt, (again.read_dec_packet() for _ in range(3))):
         assert np.array_equal(a, b)
-    cross = positioned(OggStreamReader(stream_bytes(name), device="cpu"), k)
+    cross = positioned(port_reader(stream_bytes(name), frontend), k)
     cross.restore_decode_state(
         {"cur_absgp": j_state["cur_absgp"], "started": j_state["started"],
          "backend": "torch", "torch": j_state["jax"]})
     for a, b in zip(j_nxt, (cross.read_dec_packet() for _ in range(3))):
         _same_packet(b, a)
     # a state saved before any decode resets a live decoder's window
-    fresh = OggStreamReader(stream_bytes(name), device="cpu")
+    fresh = port_reader(stream_bytes(name), frontend)
     first = fresh.save_decode_state()
     assert "torch" not in first
     fresh.read_dec_packet()
