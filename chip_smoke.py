@@ -68,7 +68,21 @@ x_realtime, transfer bytes, latency percentiles, launches, a StageTimer
 split, one untimed wave again on plain K1, bit for bit; one ``serve`` line
 each); and 30 waves of 24
 streams through one scheduler with the host RSS after each (``serve
-soak``). Every failed check raises, so the exit code is nonzero. The last
+soak``). Last, the ``mesh`` phase (``mesh_phase``): ranks of a (dp, tp)
+mesh started by ``lewton_tpu_torch/parallel/launch.py``, gloo ranks that
+share card 0 at (2, 1), (2, 2) and (1, 3) and, on a machine with two or
+more cards, NCCL ranks one per card: ``decode_chunk_sharded`` at the
+headline width (S = 256, T = 64, two chunks, i16; K1 channel-major and K2
+X at tp = 1, K2's audio form after the tensor-parallel IMDCT at tp > 1)
+and ``BatchDecoder(mesh=).decode_streams_i16`` on PERM_STREAMS, held to
+the unsharded decode on this process's card (1 LSB; lengths exact) and
+to libvorbis (0 samples over +/-2 LSB), the tp ranks of each block bit
+for bit, each rank's launches counted; each case run again on the same
+inputs with every kernel launch held against its plain version (bit for
+bit) and the run going on on the plain versions' outputs, equal to the
+kernel run bit for bit; ms per chunk of every rank (``mesh ... timing``
+lines). Every failed check raises, so the exit code
+is nonzero. The last
 stdout line is ``{"ok": true, "device": {...}}``; the line before it lists
 the kernels as JSON. Needs torch, numpy, nvcc and a C++ compiler.
 """
@@ -94,6 +108,7 @@ from lewton_tpu_torch.header import Mode
 from lewton_tpu_torch.inside_ogg import OggStreamReader, read_headers
 from lewton_tpu_torch.models import decoder
 from lewton_tpu_torch.models.decoder import (StreamDecoder, compile_setup,
+                                             decode_frames_core,
                                              floor_kernel_inputs, floor_stage,
                                              precompute_brackets, split_ok,
                                              synthesize_spectra_tapped)
@@ -1466,6 +1481,250 @@ def serve_phase(dev, card: str) -> None:
     serve_soak(streams, dev, card)
 
 
+#: the mesh phase: gloo ranks sharing card 0 at each (dp, tp), and NCCL at
+#: one rank per card where the machine has two or more cards
+MESH_GLOO = ((2, 1), (2, 2), (1, 3))
+MESH_S, MESH_T, MESH_N = 256, 64, 2  # decode_chunk_sharded: headline width
+MESH_TIMEOUT = 300.0  # seconds for each mesh's ranks, and each collective
+MESH_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "lewton_tpu_torch", "mesh_run")
+
+
+def mesh_spec(copies: int) -> list:
+    """The cases every rank runs (parallel/launch.py ``cases``): the
+    headline setup's chunks through decode_chunk_sharded (i16, one untimed
+    warm-up run), then ``copies`` copies of each PERM_STREAMS stream
+    through BatchDecoder(mesh=).decode_streams_i16 on the native
+    front-end; each case ``held``: run again after the timed run, every
+    kernel launch held against its plain version on the same inputs."""
+    return ([{"name": "chunk", "kind": "chunk", "setup": [2, 8, 11],
+              "S": MESH_S, "T": MESH_T, "N": MESH_N, "seed": 3,
+              "with_i16": True, "warmup": 1, "held": True}]
+            + [{"name": f"perm_{n}", "kind": "streams",
+                "file": os.path.join(GATE_DIR, f"{n}.ogg"),
+                "lengths": [None] * copies, "chunk": 64, "i16": True,
+                "held": True}
+               for n in PERM_STREAMS])
+
+
+def mesh_reference(dev, streams: dict) -> dict:
+    """What each mesh is held to, on this process's card: the headline
+    chunks unsharded (outputs on the host, the carry, ms per chunk), the
+    f32 bound of the carry, and the unsharded BatchDecoder's PCM and
+    launches on 2 copies of each PERM_STREAMS stream."""
+    cs = compile_setup(*synthetic_headers(2, 8, 11), device=dev)
+    frs = [to_dev(synthetic_frames(cs, T=MESH_T, S=MESH_S, seed=3 + i), dev)
+           for i in range(MESH_N)]
+
+    def run():
+        carry = init_window_carry(cs.channels, cs.n1 // 2, MESH_S, dev)
+        res = []
+        for fr in frs:
+            out, carry = decode_frames_core(cs, fr, carry, with_i16=True)
+            res.append(out)
+        return res, carry
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, carry = run()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / MESH_N
+    bound = max(sum_order_bound(synthesize_spectra_tapped(cs, fr)[0])
+                for fr in frs)
+    perm = {}
+    for name in PERM_STREAMS:
+        headers, pcks = stream_packets(streams[name][0])
+        dec = BatchDecoder(headers.ident, headers.setup, chunk=64,
+                           device=dev, raw_headers=(headers.raw_ident,
+                                                    headers.raw_setup))
+        torch.cuda.synchronize()
+        for m, a in COUNTERS.values():
+            setattr(m, a, 0)
+        outs = dec.decode_streams_i16([pcks, pcks], transport="i16")
+        if not np.array_equal(outs[0], outs[1]):
+            raise AssertionError(f"mesh reference {name}: the two copies "
+                                 "differ")
+        perm[name] = (outs, launches(), dec.cs.n1)
+    return {"chunks": [[x.cpu().numpy() for x in out] for out in res],
+            "carry": [c.cpu().numpy() for c in carry], "ms": ms,
+            "bound": 2.0 * bound, "perm": perm}
+
+
+def mesh_check(label, dp, tp, out_dir, ref: dict, streams: dict) -> dict:
+    """Hold one mesh's ranks to the unsharded decode: rank 0's gathered
+    chunks within 1 LSB (out_len exact, the carry's pwr within 2 x the
+    sum-order bound, plen/started exact); the tp ranks of each dp block,
+    and every rank's gathered arrays, bit for bit (sha256); each rank's
+    launches (K1 channel-major and K2 X once per chunk at tp = 1, K2's
+    audio form at tp > 1); each PERM_STREAMS stream the unsharded decode's
+    length, within 1 LSB of it and 0 samples over +/-2 LSB of libvorbis;
+    every case's held run (the kernels held against their plain versions
+    at the mesh's shapes, the run going on on the plain outputs) with the
+    timed run's launches and the timed run's outputs bit for bit. Returns
+    the launches of every rank summed by kernel form, and per form the
+    held calls and largest difference."""
+    recs = [json.load(open(os.path.join(out_dir, f"rank{r}.json")))
+            for r in range(dp * tp)]
+    with np.load(os.path.join(out_dir, "rank0.npz")) as z:
+        got = {k: z[k] for k in z.files}
+    worst = 0
+    for i, (pcm, lens) in enumerate(ref["chunks"]):
+        worst = max(worst, lsb_diff(got[f"chunk__out{i}_0"], pcm)[0])
+        if got[f"chunk__out{i}_0"].shape != pcm.shape or worst > 1 or \
+                not np.array_equal(got[f"chunk__out{i}_1"], lens):
+            raise AssertionError(f"{label} chunk {i}: {worst} LSB from the "
+                                 "unsharded decode, or out_len differs")
+    dpwr = float(np.abs(got["chunk__carry_0"] - ref["carry"][0]).max())
+    if dpwr > ref["bound"] or not all(
+            np.array_equal(got[f"chunk__carry_{j}"], ref["carry"][j])
+            for j in (1, 2)):
+        raise AssertionError(f"{label}: carry pwr |d| {dpwr} > "
+                             f"{ref['bound']} or plen/started differ")
+    for name, rec0 in recs[0]["cases"].items():
+        for r in recs:
+            peer = next(q for q in recs if q["dp_rank"] == r["dp_rank"])
+            if (r["cases"][name]["digest_block"]
+                    != peer["cases"][name]["digest_block"]
+                    or r["cases"][name]["digest_gathered"]
+                    != rec0["digest_gathered"]):
+                raise AssertionError(f"{label} {name}: rank {r['rank']} "
+                                     "differs from its tp peers")
+    held = {}
+    plain_diff = 0.0
+    for r in recs:
+        for name, case in r["cases"].items():
+            h = case["held"]
+            plain_diff = max(plain_diff, h["plain_maxdiff"])
+            if h["plain_maxdiff"] or h["launches"] != case["launches"] or any(
+                    h[d] != case[d] for d in ("digest_block",
+                                              "digest_gathered")):
+                raise AssertionError(
+                    f"{label} {name} rank {r['rank']}: the run on the "
+                    f"plain versions differs from the kernels' by "
+                    f"{h['plain_maxdiff']}, or launched {h['launches']} "
+                    f"against {case['launches']}")
+            for form, c in h["calls"].items():
+                if c["max_abs_err"]:
+                    raise AssertionError(f"{label} {name} rank {r['rank']}:"
+                                         f" {form} held at {c}")
+                t = held.setdefault(form, {"calls": 0, "shapes": [],
+                                           "max_abs_err": 0.0})
+                t["calls"] += c["calls"]
+                t["max_abs_err"] = max(t["max_abs_err"], c["max_abs_err"])
+                t["shapes"] += [x for x in c["shapes"]
+                                if x not in t["shapes"]]
+    want = dict.fromkeys(COUNTERS, 0) | (
+        {"floor": MESH_N, "overlap": MESH_N} if tp == 1
+        else {"overlap_audio": MESH_N})
+    total = dict.fromkeys(COUNTERS, 0)
+    for r in recs:
+        if r["cases"]["chunk"]["launches"] != want:
+            raise AssertionError(f"{label} rank {r['rank']}: launches "
+                                 f"{r['cases']['chunk']['launches']}, "
+                                 f"expected {want}")
+        for case in r["cases"].values():
+            for k, v in case["launches"].items():
+                total[k] += v
+    perm = {}
+    for name in PERM_STREAMS:
+        want_outs, want_l, n1 = ref["perm"][name]
+        golden = streams[name][1]
+        outs = [v for k, v in sorted(got.items())
+                if k.startswith(f"perm_{name}__stream")]
+        # every copy against the unsharded decode's first (its copies
+        # are bit for bit the same)
+        lsb = max(lsb_diff(o, want_outs[0])[0] for o in outs)
+        r = lsb_diff(outs[0][: golden.shape[0]], golden)
+        perm[name] = {"maxdiff_golden": r[0], "over_2lsb": r[1],
+                      "lsb_vs_unsharded": lsb}
+        if len(outs) < 2 or any(o.shape != want_outs[0].shape for o in outs) \
+                or lsb > 1 or r[1] or not 0 <= \
+                outs[0].shape[0] - golden.shape[0] <= n1:
+            raise AssertionError(f"{label} perm {name}: {perm[name]}, "
+                                 f"lengths {[o.shape for o in outs]}")
+        # tp = 1 runs the unsharded route on each block (K1 flat once a
+        # chunk); at tp > 1 the tp IMDCT takes the generic stages, the f32
+        # overlap-add and compact_i16: no kernel
+        lw = dict.fromkeys(COUNTERS, 0) if tp > 1 else want_l
+        for rr in recs:
+            if rr["cases"][f"perm_{name}"]["launches"] != lw:
+                raise AssertionError(
+                    f"{label} perm {name} rank {rr['rank']}: launches "
+                    f"{rr['cases'][f'perm_{name}']['launches']}, expected "
+                    f"{lw}")
+    ms = [r["cases"]["chunk"]["ms_per_chunk"] for r in recs]
+    print(f"mesh {label}: decode_chunk_sharded S={MESH_S} T={MESH_T} "
+          f"N={MESH_N} i16: {worst} LSB from the unsharded decode, carry "
+          f"|d| {dpwr:.3g} <= {ref['bound']:.3g}, tp peers bit for bit; "
+          f"launches per rank {recs[0]['cases']['chunk']['launches']}; "
+          f"BatchDecoder(mesh=).decode_streams_i16 on PERM_STREAMS x "
+          f"{max(2, dp)}: "
+          f"{json.dumps(perm)}; every case again on the plain versions: "
+          f"maxdiff {plain_diff} from the kernels' run, launches held "
+          f"against their plain versions on the same inputs (all ranks): "
+          f"{json.dumps(held)}")
+    return {"launches": total, "ms": ms, "held": held}
+
+
+def mesh_phase(dev, card: str) -> dict:
+    """decode_chunk_sharded and BatchDecoder(mesh=) on ranks started by
+    parallel/launch.py: gloo ranks sharing card 0 at each MESH_GLOO (dp,
+    tp), and NCCL at one rank per card (dp = cards, and (cards / 2, 2))
+    where there are two or more cards. Each mesh is held to the unsharded
+    decode on this process's card (mesh_check); prints ms per chunk of
+    every rank beside the unsharded decode's. Returns the launches of every
+    mesh summed by kernel form, and the largest difference of any held
+    launch from its plain version, by form. Any rank's failure or timeout
+    raises."""
+    from lewton_tpu_torch.parallel.launch import spawn
+
+    t0 = time.perf_counter()
+    streams = gate_streams()
+    ref = mesh_reference(dev, streams)
+    runs = [("gloo", dp, tp) for dp, tp in MESH_GLOO]
+    n = torch.cuda.device_count()
+    if n >= 2:
+        runs += [("nccl", n, 1)] + ([("nccl", n // 2, 2)] if n % 2 == 0
+                                    else [])
+    total = dict.fromkeys(COUNTERS, 0)
+    held = {}
+    for backend, dp, tp in runs:
+        label = f"{backend} dp={dp} tp={tp}"
+        out = os.path.join(MESH_DIR, f"{backend}_{dp}x{tp}")
+        os.makedirs(out, exist_ok=True)
+        spec = os.path.join(out, "spec.json")
+        with open(spec, "w") as f:
+            json.dump({"cases": mesh_spec(max(2, dp))}, f)
+        ts = time.perf_counter()
+        spawn(dp, tp, "cases", out, backend, dev.type, spec,
+              timeout=MESH_TIMEOUT)
+        secs = time.perf_counter() - ts
+        res = mesh_check(label, dp, tp, out, ref, streams)
+        for k, v in res["launches"].items():
+            total[k] += v
+        for k, c in res["held"].items():
+            held[k] = max(held.get(k, 0.0), c["max_abs_err"])
+        shared = ("ranks sharing one card" if backend == "gloo"
+                  else "one rank per card")
+        print(f"mesh {label} timing ({shared}; overhead, not scaling): "
+              f"decode_chunk_sharded ms/chunk per rank "
+              f"{[round(m, 4) for m in res['ms']]}, unsharded in this "
+              f"process {ref['ms']:.4f}; ranks' run {secs:.1f} s | card: "
+              f"{card}")
+        for fn in os.listdir(out):
+            os.remove(os.path.join(out, fn))
+    if n < 2:
+        print(f"mesh nccl: not run: this machine has {n} card(s); NCCL "
+              "takes one rank per card, so a multi-card run needs two or "
+              "more")
+    print(f"mesh phase ({time.perf_counter() - t0:.1f} s): launches "
+          f"{total}, held against the plain versions: max_abs_err {held}")
+    if any(total[k] and k not in held for k in total):
+        raise AssertionError(f"mesh: launched {total}, held only {held}")
+    return total, held
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -1737,6 +1996,9 @@ def main() -> None:
     # ---- 8. the serving scheduler ----
     serve_phase(dev, card)
 
+    # ---- 9. multi-device sharding: ranks of a (dp, tp) mesh ----
+    mesh_launches, mesh_err = mesh_phase(dev, card)
+
     kernels = []
     for key, kname, src, replaces, n_launch in (
             ("floor", "floor_spectra", "floor_kernel.cu", "floor_kernel.py:88",
@@ -1757,7 +2019,10 @@ def main() -> None:
             "name": kname, "route": "cuda",
             "source": f"lewton_tpu_torch/csrc/{src}",
             "replaces": f"lewton_tpu/ops/{replaces}",
-            "launches": n_launch, "max_abs_err": err[key],
+            # launches: the path's own drive; launches_mesh: the mesh
+            # phase's, summed over its ranks
+            "launches": n_launch, "launches_mesh": mesh_launches[key],
+            "max_abs_err": max(err[key], mesh_err.get(key, 0.0)),
             "ms": times[key], "plain_ms": times[f"{key}_plain"],
             "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
             # no single PyTorch call computes any of these functions

@@ -1,0 +1,6 @@
+from .batch import (  # noqa: F401
+    BatchDecoder,
+    decode_chunk_batch,
+    decode_chunk_sharded,
+    make_mesh,
+)

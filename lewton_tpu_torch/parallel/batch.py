@@ -1,4 +1,5 @@
-"""Multi-stream batching (lewton_tpu/parallel/batch.py).
+"""Multi-stream batching and multi-device sharding
+(lewton_tpu/parallel/batch.py).
 
 Streams are independent and decoded in lockstep by one call per chunk
 (the stream axis is explicit in the core, no ``vmap``). Packet time is
@@ -14,16 +15,30 @@ entry: each stream's packets in, PCM per stream out, its host front-end
 pipelined against the device through pinned double buffers, non-blocking
 copies and a side stream for the device-to-host copies
 (:class:`TransferSlots`, which ``serve.StreamingScheduler``'s groups use
-too). Multi-device sharding (the reference's ``mesh=``) is not ported yet.
+too).
+
+Sharding follows the reference's (dp, tp) mesh in PyTorch's idiom: one
+process per rank under ``torch.distributed`` and a ``DeviceMesh`` with dims
+("dp", "tp") (:func:`make_mesh`), in place of JAX's single-controller
+``shard_map``. dp shards the stream batch (each rank decodes its block of
+S / dp streams, no collective inside a chunk); tp shards the IMDCT's
+contraction axis, and an all-reduce over the tp group rebuilds each block
+(:func:`_imdct_tp`). :func:`decode_chunk_sharded` returns the global
+outputs on every rank (an all-gather over dp); ``BatchDecoder(mesh=)``
+entropy-decodes only the rank's block and gathers the host PCM at the end.
+``parallel/launch.py`` starts the ranks.
 """
 
 from __future__ import annotations
 
+import functools
+import os
 import time
 from types import SimpleNamespace
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.decoder import (CompiledSetup, StreamDecoder,
                               decode_frames_core, frames_to_device,
@@ -32,7 +47,8 @@ from ..ops.imdct import imdct_batch
 from ..ops.windowing import init_window_carry
 from .pack12 import p12_auto, pack12_np, pack12_supported, unpack12
 
-__all__ = ["decode_chunk_batch", "decode_chunks_scan", "pack_frame_buffers",
+__all__ = ["make_mesh", "mesh_device", "decode_chunk_batch",
+           "decode_chunks_scan", "decode_chunk_sharded", "pack_frame_buffers",
            "unpack_frame_buffers", "decode_chunk_batch_packed",
            "decode_chunk_batch_packed_i16", "decode_chunks_scan_packed",
            "decode_chunks_scan_packed_i16", "TransferSlots", "BatchDecoder"]
@@ -72,6 +88,175 @@ def decode_chunks_scan(cs: CompiledSetup, frs: dict, carry,
             out=out[i], imdct=imdct)
         lens[i] = out_len
     return (out, lens), carry
+
+
+# ---------------------------------------------------------------------------
+# Multi-device sharding: a (dp, tp) DeviceMesh over torch.distributed, one
+# process per rank.
+# ---------------------------------------------------------------------------
+
+MESH_DIMS = ("dp", "tp")
+
+
+def make_mesh(n_dp: int, n_tp: int = 1, device_type: str = "cuda"):
+    """The (dp, tp) ``DeviceMesh`` over the initialized process group: dp
+    shards the stream batch, tp the IMDCT's contraction.
+
+    The caller's ``init_process_group(backend=...)`` picks the transport:
+    "nccl" with one rank per card, "gloo" on the CPU or for ranks that share
+    a card. The group's world size must be ``n_dp * n_tp``; otherwise this
+    raises ValueError. It never initializes a group itself. With
+    ``device_type="cuda"`` the rank's card (:func:`mesh_device`) becomes its
+    current device, and without a card this raises: nothing runs on the
+    CPU in its place."""
+    n = n_dp * n_tp
+    if not (dist.is_available() and dist.is_initialized()):
+        raise ValueError(f"need a process group of {n} ranks (dp {n_dp} x "
+                         f"tp {n_tp}); none is initialized (call "
+                         "torch.distributed.init_process_group first)")
+    have = dist.get_world_size()
+    if have != n:
+        raise ValueError(f"need {n} ranks (dp {n_dp} x tp {n_tp}), the "
+                         f"process group has {have}")
+    if device_type == "cuda":
+        # before the mesh: DeviceMesh would set LOCAL_RANK's card itself,
+        # which does not exist when ranks share one card
+        torch.cuda.set_device(_rank_card())
+        torch.cuda.init()
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh(device_type, (n_dp, n_tp),
+                            mesh_dim_names=MESH_DIMS)
+
+
+def _rank_card() -> torch.device:
+    """cuda:{LOCAL_RANK % cards} (the global rank when LOCAL_RANK is not
+    set): the rank's own card under NCCL, the shared card when gloo ranks
+    outnumber the cards."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("a CUDA mesh needs a CUDA card; none is available "
+                           "(nothing falls back to the CPU)")
+    local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+    return torch.device("cuda", local % torch.cuda.device_count())
+
+
+def mesh_device(mesh) -> torch.device:
+    """The device this rank decodes on: the CPU for a "cpu" mesh, else the
+    rank's card (``_rank_card``)."""
+    if mesh.device_type == "cpu":
+        return torch.device("cpu")
+    if mesh.device_type != "cuda":
+        raise ValueError(f"mesh device type {mesh.device_type!r}: 'cuda' or "
+                         "'cpu'")
+    return _rank_card()
+
+
+def _check_mesh(mesh) -> None:
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not isinstance(mesh, DeviceMesh) or mesh.mesh_dim_names != MESH_DIMS:
+        raise TypeError(f"mesh: a DeviceMesh with dims {MESH_DIMS} "
+                        f"(make_mesh), not {type(mesh).__name__}")
+
+
+def _imdct_tp(spectra, bf, m0, m1, group=None, ntp: int = 1):
+    """Tensor-parallel IMDCT (reference ``_imdct_tp``): the signature of
+    :func:`imdct_batch` once ``group`` (the mesh's tp group) and ``ntp``
+    (its size) are bound, so it plugs into ``decode_frames_core(imdct=)``.
+
+    The contraction axis (the spectral width, rows of m0/m1) is zero-padded
+    to a multiple of ntp and split into ntp slices; this rank multiplies
+    its slice of the spectra by its rows of each matrix (fp32
+    ``torch.matmul``, TF32 off), selects long/short per blockflag with the
+    short output padded to n1, and an all-reduce (sum) over ``group``
+    rebuilds the block. Zero rows add nothing, so padding (never a
+    floor-divided slice, which drops the tail rows) keeps every term: the
+    same sum as :func:`imdct_batch` in another order. Every rank of the
+    group must end with the same bits, or the ranks of a dp block drift
+    apart chunk by chunk: tests/test_torch_parallel.py and chip_smoke.py
+    hold them bit for bit. The port makes no host copy here: gloo reduces a
+    CUDA tensor through host memory inside ProcessGroupGloo; NCCL keeps it
+    on the cards."""
+    ti = dist.get_rank(group) if ntp > 1 else 0
+
+    def part(mat, spec):
+        w = mat.shape[0]
+        wk = -(-w // ntp)
+        lo, hi = min(ti * wk, w), min((ti + 1) * wk, w)
+        sl, mk = spec[..., lo:hi], mat[lo:hi]
+        if hi - lo < wk:  # this rank's slice reaches into the zero pad
+            sl = torch.nn.functional.pad(sl, (0, wk - (hi - lo)))
+            mk = torch.nn.functional.pad(mk, (0, 0, 0, wk - (hi - lo)))
+        return torch.matmul(sl, mk)
+
+    n0, n1 = m0.shape[1], m1.shape[1]
+    out = part(m1, spectra)
+    if n0 != n1:
+        short = torch.nn.functional.pad(part(m0, spectra), (0, n1 - n0))
+        out = torch.where((bf == 1)[:, None, None], out, short)
+    if ntp > 1:
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
+def _mesh_imdct(mesh):
+    """The IMDCT a rank of ``mesh`` runs: the stock one at tp = 1 (as the
+    reference passes no transform there), else :func:`_imdct_tp` on the
+    mesh's tp group."""
+    ntp = mesh["tp"].size()
+    if ntp == 1:
+        return imdct_batch
+    return functools.partial(_imdct_tp, group=mesh["tp"].get_group(),
+                             ntp=ntp)
+
+
+def _dp_block(mesh, S: int) -> tuple[int, int]:
+    """[lo, hi) of this rank's block of the S streams; raises ValueError
+    unless the mesh's dp size divides S."""
+    dp = mesh["dp"].size()
+    if S % dp:
+        raise ValueError(f"the stream batch S={S} is not divisible by the "
+                         f"mesh's dp size {dp}")
+    b = S // dp
+    r = mesh.get_local_rank("dp")
+    return r * b, (r + 1) * b
+
+
+def _gather_dp(mesh, x: torch.Tensor) -> torch.Tensor:
+    """The dp blocks of ``x`` (leading axis) of every rank of this rank's
+    dp group, concatenated in dp order. Gathered as bytes: neither gloo nor
+    NCCL takes every dtype (int16, bool)."""
+    dp = mesh["dp"].size()
+    if dp == 1:
+        return x
+    b = x.contiguous().view(-1).view(torch.uint8)
+    full = torch.empty(dp * b.numel(), dtype=torch.uint8, device=x.device)
+    dist.all_gather_into_tensor(full, b, group=mesh["dp"].get_group())
+    return full.view(x.dtype).view((dp * x.shape[0],) + tuple(x.shape[1:]))
+
+
+def decode_chunk_sharded(mesh, cs: CompiledSetup, fr: dict, carry,
+                         with_i16: bool = False, compact_cap=None):
+    """Chunk decode over a (dp, tp) mesh (reference
+    ``decode_chunk_sharded``), called by every rank with the same global
+    inputs: frames leaves [S, T, ...] and carry leaves [S, ...], S
+    divisible by the mesh's dp size (else ValueError), setup tables
+    replicated. The rank decodes its dp block through
+    :func:`decode_frames_core` with the mesh's IMDCT (``_mesh_imdct``: at
+    tp > 1 the tp IMDCT and its all-reduce), and an all-gather over dp
+    returns the global outputs and carry on every rank, as the reference's
+    ``out_specs=P("dp")``. ``compact_cap`` must be the same on every rank."""
+    lo, hi = _dp_block(mesh, fr["mode"].shape[0])
+
+    def blk(v):
+        return tuple(b[lo:hi] for b in v) if isinstance(v, tuple) \
+            else v[lo:hi]
+
+    res, carry = decode_frames_core(
+        cs, {k: blk(v) for k, v in fr.items()}, blk(carry),
+        with_i16=with_i16, compact_cap=compact_cap, imdct=_mesh_imdct(mesh))
+    return (tuple(_gather_dp(mesh, x) for x in res),
+            tuple(_gather_dp(mesh, c) for c in carry))
 
 
 # ---------------------------------------------------------------------------
@@ -120,11 +305,13 @@ def unpack_frame_buffers(residue, bbuf, ibuf, fbuf, shapes) -> dict:
 
 
 def decode_chunk_batch_packed(cs, residue, bbuf, ibuf, fbuf, shapes, carry,
-                              compact_cap):
+                              compact_cap, imdct=imdct_batch):
     """One chunk over packed buffers, device-compacted output: ((pcm i16
-    [S, cap, C], total [S], out_len [S, T]), carry)."""
+    [S, cap, C], total [S], out_len [S, T]), carry). ``imdct`` as
+    :func:`decode_frames_core`'s (a mesh's tp transform)."""
     fr = unpack_frame_buffers(residue, bbuf, ibuf, fbuf, shapes)
-    return decode_frames_core(cs, fr, carry, compact_cap=compact_cap)
+    return decode_frames_core(cs, fr, carry, compact_cap=compact_cap,
+                              imdct=imdct)
 
 
 def decode_chunk_batch_packed_i16(cs, residue, bbuf, ibuf, fbuf, shapes,
@@ -289,7 +476,8 @@ class TransferSlots:
         return host, copied
 
     def dispatch(self, slot: int, fr: dict, lens: np.ndarray, carry,
-                 p12: bool, compact: str = "device", lap=None) -> tuple:
+                 p12: bool, compact: str = "device", lap=None,
+                 imdct=imdct_batch) -> tuple:
         """One group of N chunks through ``slot``: pack the host frames
         ``fr`` [N, S, T, ...] (the residue's 12-bit planes travel as int32
         with ``p12``), copy them in, enqueue the decode and start the PCM's
@@ -297,10 +485,14 @@ class TransferSlots:
         output length bucketed from the packet lengths ``lens`` [N, S, T];
         ``compact="host"`` takes the i16 path's padded chunk. ``lap(stage,
         device_work)`` marks the ends of packing, the copy in and the
-        decode. Returns (host PCM, copy event, carry, H2D bytes, D2H
-        bytes); the PCM has no leading N when N is 1."""
+        decode. ``imdct`` (a mesh's tp transform) is taken at N = 1 with
+        ``compact="device"``. Returns (host PCM, copy event, carry, H2D
+        bytes, D2H bytes); the PCM has no leading N when N is 1."""
         cs = self.sd.cs
         N = lens.shape[0]
+        if imdct is not imdct_batch and (N > 1 or compact != "device"):
+            raise ValueError("a caller's imdct is taken at N = 1 with "
+                             "compact='device' only")
         if N == 1:
             fr = {k: v[0] for k, v in fr.items()}
         residue, bb, ib, fb, shapes = pack_frame_buffers(fr)
@@ -331,7 +523,7 @@ class TransferSlots:
                     cs, *dev, shapes, carry, cap)
             else:
                 (pcm, _, _), carry = decode_chunk_batch_packed(
-                    cs, *dev, shapes, carry, cap)
+                    cs, *dev, shapes, carry, cap, imdct)
         if lap:
             lap("device", device_work=True)
         host, copied = self.to_host_async(pcm, slot)
@@ -348,15 +540,27 @@ class BatchDecoder:
     Streams are padded to a common packet count; per-packet lengths recover
     the ragged output. The host front-end is :class:`StreamDecoder`'s
     (``raw_headers`` and ``frontend`` as there: the native library unless
-    the caller asks for the Python one). ``mesh=`` (multi-device sharding)
-    is not in the port yet and raises."""
+    the caller asks for the Python one).
+
+    ``mesh=`` (a :func:`make_mesh` DeviceMesh; every rank of the group
+    constructs the decoder and makes the same calls, as under ``torchrun``)
+    shards the streams: the rank decodes on :func:`mesh_device` (its card,
+    or the CPU for a "cpu" mesh; ``device`` is not read), entropy-decodes
+    only its dp block of the S streams (S divisible by the dp size; the tp
+    ranks of a block decode the same block, the IMDCT split between them
+    by :func:`_imdct_tp`), runs the chunk count of the longest of all S
+    streams so every rank makes the same collectives, and returns all S
+    streams, gathered over dp as host arrays."""
 
     def __init__(self, ident, setup, chunk: int = 64, mesh=None,
                  raw_headers=None, frontend: str = "auto", scan: int = 1,
                  device="cuda"):
+        self.mesh = mesh
+        self._imdct = imdct_batch
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (multi-device sharding) is not in lewton_tpu_torch")
+            _check_mesh(mesh)
+            device = mesh_device(mesh)
+            self._imdct = _mesh_imdct(mesh)
         self.ident, self.setup = ident, setup
         self._sd = StreamDecoder(ident, setup, chunk, raw_headers, frontend,
                                  device)
@@ -373,15 +577,35 @@ class BatchDecoder:
         self._bf_host = self.cs.mode_blockflag.cpu().numpy()
         self._slots = TransferSlots(self._sd)
         #: accounting of the last decode_streams* call: bytes shipped
-        #: host->device and device->host, the residue transport, and the
-        #: host seconds per stage (decode_streams_i16)
+        #: host->device and device->host (with a mesh, this rank's), the
+        #: residue transport, and the host seconds per stage
+        #: (decode_streams_i16)
         self.last_stats = {"h2d_bytes": 0, "d2h_bytes": 0}
+
+    def _mine(self, streams: list) -> list:
+        """This rank's dp block of ``streams`` (all of them without a
+        mesh)."""
+        if self.mesh is None:
+            return streams
+        lo, hi = _dp_block(self.mesh, len(streams))
+        return streams[lo:hi]
+
+    def _gathered(self, outs: list) -> list:
+        """Every rank's block of outputs in dp order (``outs`` itself
+        without a mesh or at dp = 1)."""
+        if self.mesh is None or self.mesh["dp"].size() == 1:
+            return outs
+        blocks = [None] * self.mesh["dp"].size()
+        dist.all_gather_object(blocks, outs,
+                               group=self.mesh["dp"].get_group())
+        return [o for b in blocks for o in b]
 
     def decode_streams(self, streams: list[list[bytes]]) -> list[np.ndarray]:
         """streams: per stream, its audio packets. Returns planar f32 PCM
         [C, total] per stream."""
-        S = len(streams)
         max_t = max(len(p) for p in streams)
+        streams = self._mine(streams)
+        S = len(streams)
         C = self.cs.channels
         # the frames go to the core as they are (no packed transport), so
         # the native emit is the plain i16/f32 residue
@@ -395,17 +619,18 @@ class BatchDecoder:
             self.last_stats["h2d_bytes"] += sum(v.nbytes
                                                 for v in fr_np.values())
             fr = frames_to_device(fr_np, self.device)
-            (out, out_len), carry = decode_chunk_batch(self.cs, fr, carry)
+            (out, out_len), carry = decode_chunk_batch(
+                self.cs, fr, carry, imdct=self._imdct)
             out = out.cpu().numpy()
             out_len = out_len.cpu().numpy()
             self.last_stats["d2h_bytes"] += out.nbytes + out_len.nbytes
             for s in range(S):
                 for t in range(min(self.chunk, len(streams[s]) - t0)):
                     outs[s].append(out[s, t, :, : out_len[s, t]])
-        return [
+        return self._gathered([
             np.concatenate(o, axis=1) if o else np.zeros((C, 0), np.float32)
             for o in outs
-        ]
+        ])
 
     def decode_streams_i16(self, streams: list,
                            compact: str = "device",
@@ -429,17 +654,24 @@ class BatchDecoder:
         pack12.py; the native front-end emits the packed planes as it
         decodes) or "auto" (p12 on a slow measured link, i16 on the CPU).
 
+        With a mesh, as in the reference: one chunk per group, the i16
+        transport, and the device-compacted path whatever ``compact`` says;
+        each rank bounds its ``compact_cap`` by its own block's packets.
+
         Pipelined: each group's device work and device-to-host copy run
         while the host entropy-decodes the next group; the previous group's
         PCM is copied into the outputs once the next group is enqueued. The
         host frame buffers and the pinned buffers of both directions are
         kept per slot of a double buffer and reused across groups and
         calls."""
-        S = len(streams)
         max_t = max(len(p) for p in streams)
-        C, n1 = self.cs.channels, self.cs.n1
+        streams = self._mine(streams)
+        S = len(streams)
+        n1 = self.cs.n1
         st = _Stages(self.device, self.stage_sync)
         scan = max(1, int(self.scan if scan is None else scan))
+        if self.mesh is not None:
+            scan, transport, compact = 1, "i16", "device"
         if transport == "auto":
             transport = "p12" if p12_auto(self.cs, self.device) else "i16"
         use_p12 = transport == "p12" and pack12_supported(self.cs)
@@ -462,8 +694,8 @@ class BatchDecoder:
         # outputs sized by each stream's most samples (3 n1/4 a packet) and
         # cut to the decoded length at the end: np.empty leaves the pages
         # past the audio untouched
-        outs = [np.empty((len(p) * (3 * n1 // 4), C), np.int16)
-                for p in streams]
+        outs = [np.empty((len(p) * (3 * n1 // 4), self.cs.channels),
+                         np.int16) for p in streams]
         offs = np.zeros(S, np.int64)
         #: the group whose device-to-host copy is in flight: [host pcm,
         #: copy event, totals [N, S], lens [N, S, T] | None]
@@ -481,7 +713,8 @@ class BatchDecoder:
                 lens_all[n], started = predict_out_lens(bf_host, view,
                                                         started)
             host, copied, carry, h2d, d2h = self._slots.dispatch(
-                slot, buf, lens_all, carry, use_p12, compact, st.lap)
+                slot, buf, lens_all, carry, use_p12, compact, st.lap,
+                self._imdct)
             self.last_stats["h2d_bytes"] += h2d
             self.last_stats["d2h_bytes"] += d2h
             # finish the previous group: its copy had this group's
@@ -494,7 +727,8 @@ class BatchDecoder:
         if pending is not None:
             self._finish(pending, outs, offs, st)
         self.last_stats["stages"] = st.result()
-        return [o[: int(offs[s])] for s, o in enumerate(outs)]
+        return self._gathered([o[: int(offs[s])]
+                               for s, o in enumerate(outs)])
 
     def _finish(self, entry: list, outs: list, offs: np.ndarray,
                 st: _Stages) -> None:

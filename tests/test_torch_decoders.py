@@ -173,9 +173,16 @@ def test_entry_points_default_to_the_card():
                 make(headers.ident, headers.setup)
 
 
-def test_no_native_front_end_and_no_mesh():
+def test_no_native_front_end_and_no_mesh(tmp_path):
     """frontend="native" takes the port's library and decodes; without the
-    raw header packets it raises ValueError; mesh= is not in the port."""
+    raw header packets it raises ValueError. mesh=: a 1-rank gloo CPU mesh
+    decodes tiny_44k bit for bit as the unsharded decoder (one rank holds
+    every stream and the whole contraction); an object that is not a mesh
+    raises TypeError."""
+    import torch.distributed as dist
+
+    from lewton_tpu_torch.parallel import make_mesh
+
     headers, pcks = _stream(PacketReader, read_headers, "tiny_44k")
     hs = (headers.ident, headers.setup)
     sd = StreamDecoder(*hs, raw_headers=_raw(headers), frontend="native",
@@ -184,8 +191,24 @@ def test_no_native_front_end_and_no_mesh():
     assert sum(p.shape[1] for p in sd.decode_packets_i16(pcks)) > 0
     with pytest.raises(ValueError, match="raw_headers"):
         StreamDecoder(*hs, frontend="native", device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         BatchDecoder(*hs, mesh=object(), device="cpu")
+    streams = [pcks, pcks[:7]]
+    plain = BatchDecoder(*hs, chunk=CHUNK, device="cpu")
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'pg'}",
+                            rank=0, world_size=1)
+    try:
+        dec = BatchDecoder(*hs, chunk=CHUNK, mesh=make_mesh(1, 1, "cpu"))
+        assert dec.device.type == "cpu"
+        for got, want in ((dec.decode_streams(streams),
+                           plain.decode_streams(streams)),
+                          (dec.decode_streams_i16(streams),
+                           plain.decode_streams_i16(streams))):
+            assert len(got) == 2
+            for g, w in zip(got, want):
+                assert g.size and np.array_equal(g, w)
+    finally:
+        dist.destroy_process_group()
 
 
 # ---- BatchDecoder ----
