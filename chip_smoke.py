@@ -95,6 +95,7 @@ import ctypes
 import hashlib
 import json
 import os
+import platform
 import statistics
 import subprocess
 import sys
@@ -103,17 +104,21 @@ import time
 import numpy as np
 import torch
 
-from lewton_tpu_torch import _build, native, serve
+from lewton_tpu_torch import _build, debug, native, serve
+from lewton_tpu_torch.audio import decode_packet_entropy
 from lewton_tpu_torch.header import Mode
 from lewton_tpu_torch.inside_ogg import OggStreamReader, read_headers
 from lewton_tpu_torch.models import decoder
 from lewton_tpu_torch.models.decoder import (StreamDecoder, compile_setup,
-                                             decode_frames_core,
+                                             decode_frames, decode_frames_core,
                                              floor_kernel_inputs, floor_stage,
+                                             frames_to_device, pack_frames,
                                              precompute_brackets, split_ok,
                                              synthesize_spectra_tapped)
 from lewton_tpu_torch.ops import (floor_kernel, imdct, overlap_kernel,
                                   synth_kernel)
+from lewton_tpu_torch.ops.floor_curve import (floor1_curve_batch,
+                                              floor1_curve_mxu)
 from lewton_tpu_torch.ops.imdct import (dct4_batch_parts_ct,
                                         dct4_split_uv_from_cd,
                                         imdct_batch_parts_ct, split_butterfly,
@@ -124,6 +129,7 @@ from lewton_tpu_torch.parallel.batch import BatchDecoder, decode_chunks_scan
 from lewton_tpu_torch.parallel.pack12 import (pack12_np, pack12_supported,
                                              probed_h2d_mb_s)
 from lewton_tpu_torch.profiling import StageTimer
+from lewton_tpu_torch.samples import to_i16
 from lewton_tpu_torch.serve import StreamingScheduler
 from lewton_tpu_torch.testing import (synthetic_floor0_frames,
                                       synthetic_frames, synthetic_headers)
@@ -1725,6 +1731,407 @@ def mesh_phase(dev, card: str) -> dict:
     return total, held
 
 
+#: the backends phase: the CPU decoders against the card's
+CPU_BACKENDS = ("numpy", "native")
+CAPI_STREAMS = ("stereo_44k_q3", "ch6_44k_q3")
+TAP_STREAM, TAP_PACKETS = "tiny_44k", 8
+#: tests/test_debug_taps.py's tolerances: residue and pre-MDCT taps, and
+#: post-MDCT
+TAP_ATOL, TAP_ATOL_POST = 2e-6, 1e-4
+#: rows of the floor-curve check: floor1_curve_batch materialises four
+#: [rows, C, P, W] compare-select tensors (bool and i32) at once, about
+#: 0.75 GB at 1024 rows of the flagship (C 2, P 26, W 896)
+CURVE_ROWS = 1024
+RATE_STREAM, RATE_REPS = "stereo_44k_q3", 3
+BACKENDS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "lewton_tpu_torch", "backends_run")
+
+
+def cpu_name() -> str:
+    """The host CPU's model (``/proc/cpuinfo``, else ``lscpu``, which also
+    names Arm cores), its architecture and the cores this process sees."""
+    name = None
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if line.startswith("model name"):
+                name = line.split(":", 1)[1].strip()
+                break
+    if name is None:
+        try:
+            out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                                 timeout=10).stdout
+        except OSError:
+            out = ""
+        fields = dict(line.split(":", 1) for line in out.splitlines()
+                      if ":" in line)
+        name = " ".join(fields[k].strip() for k in ("Vendor ID", "Model name")
+                        if k in fields) or "model not reported"
+    return (f"{name}, {platform.machine()}, "
+            f"{len(os.sched_getaffinity(0))} cores")
+
+
+def backend_read(data: bytes, backend: str, dev) -> tuple:
+    """read_all_i16 of a fresh reader: (interleaved i16, route)."""
+    if backend == "native-packets":
+        # the per-link loop (decode_many), which the one call hands back
+        # its streams to
+        r = OggStreamReader(data, backend="native")
+        out = to_i16(r.read_all_planar_f32()).T
+        return out, "packets"
+    r = OggStreamReader(data, backend=backend, device=dev)
+    out = r.read_all_i16()
+    return out, r.native_route
+
+
+def packet_loop(data: bytes, backend: str, dev) -> np.ndarray:
+    """read_dec_packet to the end: interleaved i16 [samples, C]."""
+    r = OggStreamReader(data, backend=backend, device=dev)
+    outs = []
+    while (p := r.read_dec_packet()) is not None:
+        outs.append(p)
+    return np.concatenate(outs, axis=1).T
+
+
+def save_restore(data: bytes, backend: str, dev, at: int = 10,
+                 n: int = 5) -> None:
+    """A state saved after ``at`` packets and restored in a fresh reader
+    positioned by packet count: the next ``n`` packets bit for bit."""
+    r = OggStreamReader(data, backend=backend, device=dev)
+    for _ in range(at):
+        r.read_dec_packet()
+    state = r.save_decode_state()
+    want = [r.read_dec_packet() for _ in range(n)]
+    r2 = OggStreamReader(data, backend=backend, device=dev)
+    for _ in range(at):
+        r2.read_next_audio_packet()
+    r2.restore_decode_state(state)
+    for i, w in enumerate(want):
+        got = r2.read_dec_packet()
+        if got.shape != w.shape or not np.array_equal(got, w):
+            raise AssertionError(f"save/restore {backend}: packet {at + i} "
+                                 "differs after the restore")
+
+
+def capi_lib():
+    """The port's C ABI (lewton_tpu.h) through ctypes, on the stable link
+    C clients link against."""
+    lib = ctypes.CDLL(str(_build.capi_library()))
+    u8p, vp = ctypes.POINTER(ctypes.c_uint8), ctypes.c_void_p
+    sz = ctypes.c_size_t
+    for name, res, args in (
+            ("lewton_context_from_extradata", vp, [u8p, sz]),
+            ("lewton_context_reset", None, [vp]),
+            ("lewton_decode_packet", ctypes.c_int,
+             [vp, u8p, sz, ctypes.POINTER(vp)]),
+            ("lewton_samples_count", sz, [vp]),
+            ("lewton_samples_channels", sz, [vp]),
+            ("lewton_samples_f32", ctypes.POINTER(ctypes.c_float), [vp, sz]),
+            ("lewton_samples_drop", None, [vp]),
+            ("lewton_context_drop", None, [vp])):
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = res, args
+    return lib
+
+
+def xiph_extradata(ident: bytes, comment: bytes, setup: bytes) -> bytes:
+    def lace(n):
+        return b"\xff" * (n // 255) + bytes([n % 255])
+    return (bytes([2]) + lace(len(ident)) + lace(len(comment)) + ident
+            + comment + setup)
+
+
+def capi_packets(lib, ctx, pcks) -> np.ndarray:
+    """Packets through lewton_decode_packet: planar f32 [C, n]."""
+    chunks = []
+    for p in pcks:
+        buf = (ctypes.c_uint8 * len(p)).from_buffer_copy(p)
+        out = ctypes.c_void_p()
+        if lib.lewton_decode_packet(ctx, buf, len(p), ctypes.byref(out)):
+            raise AssertionError("lewton_decode_packet refused an audio "
+                                 "packet")
+        n = lib.lewton_samples_count(out)
+        if n:
+            chunks.append(np.stack([np.ctypeslib.as_array(
+                lib.lewton_samples_f32(out, c), (n,)).copy()
+                for c in range(lib.lewton_samples_channels(out))]))
+        lib.lewton_samples_drop(out)
+    return np.concatenate(chunks, axis=1)
+
+
+def capi_check(streams: dict, card: str) -> dict:
+    """examples/capi_demo.c built by cc against the port's header and
+    library, run on CAPI_STREAMS, its WAV within +/-2 LSB of the golden
+    over the granule-trimmed range; through ctypes: lewton_context_reset
+    gives the same PCM again, malformed extradata gives no context."""
+    import wave
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(BACKENDS_DIR, exist_ok=True)
+    link = _build.capi_library()
+    exe = os.path.join(BACKENDS_DIR, "capi_demo")
+    subprocess.run(["cc", "-O2", os.path.join(root, "examples", "capi_demo.c"),
+                    "-I", os.path.join(root, "lewton_tpu_torch", "native"),
+                    "-L", str(link.parent), "-llewton_host", "-lm", "-o",
+                    exe], check=True)
+    res = {}
+    for name in CAPI_STREAMS:
+        data, golden, _ = streams[name]
+        src = os.path.join(BACKENDS_DIR, name + ".ogg")
+        wav = os.path.join(BACKENDS_DIR, name + ".wav")
+        with open(src, "wb") as f:
+            f.write(data)
+        subprocess.run([exe, src, wav], check=True, timeout=120,
+                       capture_output=True,
+                       env=dict(os.environ, LD_LIBRARY_PATH=str(link.parent)))
+        with wave.open(wav) as w:
+            pcm = np.frombuffer(w.readframes(w.getnframes()), np.int16)
+            pcm = pcm.reshape(-1, w.getnchannels())
+        if pcm.shape[0] < golden.shape[0] or pcm.shape[1] != golden.shape[1]:
+            raise AssertionError(f"capi_demo {name}: {pcm.shape}, golden "
+                                 f"{golden.shape}")
+        res[name] = lsb_diff(pcm[:golden.shape[0]], golden)
+        for f in (src, wav):
+            os.remove(f)
+    lib = capi_lib()
+    headers, pcks = stream_packets(streams["tiny_44k"][0])
+    rdr = PacketReader(streams["tiny_44k"][0])
+    comment = [rdr.read_packet() for _ in range(2)][1].data
+    ext = xiph_extradata(headers.raw_ident, comment, headers.raw_setup)
+    ctx = lib.lewton_context_from_extradata(
+        (ctypes.c_uint8 * len(ext)).from_buffer_copy(ext), len(ext))
+    if not ctx:
+        raise AssertionError("lewton_context_from_extradata refused good "
+                             "extradata")
+    first = capi_packets(lib, ctx, pcks[:4])
+    lib.lewton_context_reset(ctx)
+    again = capi_packets(lib, ctx, pcks[:4])
+    lib.lewton_context_drop(ctx)
+    if first.tobytes() != again.tobytes():
+        raise AssertionError("lewton_context_reset: the same packets decode "
+                             "differently after the reset")
+    bad = bytes([3, 1, 1, 0, 0, 0])
+    if lib.lewton_context_from_extradata(
+            (ctypes.c_uint8 * len(bad)).from_buffer_copy(bad), len(bad)):
+        raise AssertionError("lewton_context_from_extradata took malformed "
+                             "extradata")
+    print(f"backends capi: capi_demo.c built by cc against "
+          f"lewton_tpu_torch/native/lewton_tpu.h and {link.name}; "
+          + ", ".join(f"{k} maxdiff {v[0]} LSB, {v[1]} over +/-{GATE_LSB}"
+                      for k, v in res.items())
+          + "; reset and malformed extradata as expected | CPU: "
+          + cpu_name())
+    return res
+
+
+def taps_check(streams: dict, dev, card: str) -> dict:
+    """The numpy backend's debug taps on TAP_PACKETS packets of TAP_STREAM
+    against decode_frames(with_taps=True) on the card."""
+    data = streams[TAP_STREAM][0]
+    with debug.taps() as t:
+        r = OggStreamReader(data, backend="numpy")
+        for _ in range(TAP_PACKETS):
+            r.read_dec_packet()
+    headers, pcks = stream_packets(data)
+    pcks = pcks[:TAP_PACKETS]
+    cs = compile_setup(headers.ident, headers.setup, device=dev)
+    plans = [decode_packet_entropy(headers.ident, headers.setup, p)
+             for p in pcks]
+    fr = frames_to_device(pack_frames(cs, plans, len(pcks)), dev)
+    carry = tuple(c[0] for c in init_window_carry(cs.channels, cs.n1 // 2, 1,
+                                                  dev))
+    (_, _, taps), _ = decode_frames(cs, fr, carry, with_taps=True)
+    err = {}
+    for k in debug.TAP_NAMES:
+        got = taps[k].cpu().numpy()
+        if len(t[k]) != len(pcks):
+            raise AssertionError(f"taps {k}: {len(t[k])} records for "
+                                 f"{len(pcks)} packets")
+        e = 0.0
+        for i, ref in enumerate(t[k]):
+            n = ref.shape[1] if k == "post_mdct" else min(ref.shape[1],
+                                                          cs.w_eff)
+            e = max(e, float(np.abs(got[i, :, :n] - ref[:, :n]).max()))
+            if k != "post_mdct" and np.any(ref[:, cs.w_eff:]):
+                raise AssertionError(f"taps {k}[{i}]: values past w_eff")
+        err[k] = e
+        tol = TAP_ATOL_POST if k == "post_mdct" else TAP_ATOL
+        if e > tol:
+            raise AssertionError(f"taps {k}: max abs err {e} > {tol}")
+    print(f"backends taps ({TAP_STREAM}, {len(pcks)} packets, numpy "
+          f"backend vs decode_frames(with_taps=True) on the card): "
+          + ", ".join(f"{k} {v:.3g}" for k, v in err.items())
+          + f" (tolerances {TAP_ATOL} / {TAP_ATOL_POST} post-MDCT) | card: "
+          f"{card}")
+    return err
+
+
+def curves_check(dev, card: str) -> dict:
+    """floor1_curve_batch and floor1_curve_mxu on the card at the flagship
+    width (CURVE_ROWS rows of synthetic frames): bit for bit equal to each
+    other and to their CPU results; ms of each."""
+    cs = compile_setup(*synthetic_headers(2, 8, 11), device=dev)
+    fr = {k: v[0] for k, v in
+          synthetic_frames(cs, T=CURVE_ROWS, S=1, seed=7).items()}
+    mode = torch.from_numpy(fr["mode"].astype(np.int32))
+    args = [cs.f1_xs.cpu()[mode.long()], torch.from_numpy(fr["f1_ys"]),
+            torch.from_numpy(fr["f1_flags"]),
+            cs.f1_mult.cpu()[mode.long()]]
+    W = cs.w_eff
+    step = cs.f1_step.cpu()
+    on = [a.to(dev) for a in args]
+    mode_d = mode.to(dev)
+
+    def batch(a):
+        return floor1_curve_batch(*a, W)
+
+    def mxu(a, m, st):
+        return floor1_curve_mxu(*a, m, st, W)
+
+    got = {"batch": batch(on), "mxu": mxu(on, mode_d, cs.f1_step)}
+    want = {"batch": batch(args), "mxu": mxu(args, mode, step)}
+    ref = want["batch"]
+    for k in got:
+        for label, t in (("card", got[k].cpu()), ("cpu", want[k])):
+            if not _same_bits(t, ref):
+                raise AssertionError(f"floor curve {k} on the {label} "
+                                     f"differs from floor1_curve_batch on "
+                                     "the CPU")
+    ms = {"batch": cuda_ms(lambda: batch(on), 5),
+          "mxu": cuda_ms(lambda: mxu(on, mode_d, cs.f1_step), 20)}
+    rows, C, P = args[0].shape
+    print(f"backends floor curves: floor1_curve_batch and floor1_curve_mxu "
+          f"at rows={rows} C={C} P={P} W={W} (synthetic_headers(2, 8, 11)) "
+          f"bit for bit on the card, with each other and with the CPU; ms "
+          f"per call batch {ms['batch']:.4f}, mxu {ms['mxu']:.4f} | card: "
+          f"{card}")
+    return ms
+
+
+def host_rates(streams: dict, dev, card: str) -> dict:
+    """x_realtime of read_all_i16 on RATE_STREAM: the numpy and native
+    backends on the CPU, the torch backend on the card (medians of
+    RATE_REPS after one warm-up)."""
+    data, golden, _ = streams[RATE_STREAM]
+    rate = OggStreamReader(data, backend="numpy").ident_hdr.sample_rate
+    audio_s = golden.shape[0] / rate
+    res = {}
+    for backend in ("numpy", "native", "torch"):
+        backend_read(data, backend, dev)
+        secs = []
+        for _ in range(RATE_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            backend_read(data, backend, dev)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        res[backend] = audio_s / statistics.median(secs)
+    print(f"backends host rates ({RATE_STREAM}, {audio_s:.2f} s of audio, "
+          f"read_all_i16 of a fresh reader, median of {RATE_REPS}): numpy "
+          f"{res['numpy']:.1f} x_realtime, native {res['native']:.1f} "
+          f"x_realtime (CPU: {cpu_name()}), torch {res['torch']:.1f} "
+          f"x_realtime (card: {card})")
+    return res
+
+
+def backends_phase(dev, card: str) -> tuple[dict, dict]:
+    """The reader's three backends on the 38 gate streams: numpy and native
+    (one call, and the per-link loop) on the CPU, torch on the card with
+    every K1 and K2 launch held bit for bit against its plain version
+    (``launch.held_kernels``); each output exact in length with 0 samples
+    over +/-2 LSB of libvorbis, and the largest difference of each pair of
+    backends. On PERM_STREAMS also read_dec_packet to the end and a
+    mid-stream save/restore on each backend. Then the C ABI, the debug
+    taps, the floor curves and the host rates. Returns the torch backend's
+    launches and the held calls' largest error by kernel form."""
+    from lewton_tpu_torch.parallel.launch import held_kernels
+
+    t0 = time.perf_counter()
+    streams = gate_streams()
+    names = ("numpy", "native", "native-packets", "torch")
+    routes = {"one-call": [], "packets": []}
+    pair_max = {}
+    torch.cuda.synchronize()
+    for m, a in COUNTERS.values():
+        setattr(m, a, 0)
+    held: dict = {}
+    torch_s = 0.0
+    for name, (data, golden, kind) in streams.items():
+        outs = {}
+        for b in names:
+            ts = time.perf_counter()
+            if b == "torch":
+                with held_kernels(held):
+                    out, _ = backend_read(data, b, dev)
+                torch_s += time.perf_counter() - ts
+            else:
+                out, route = backend_read(data, b, dev)
+                if b == "native":
+                    routes[route].append(name)
+            if out.shape != golden.shape:
+                raise AssertionError(f"backends {b} {name}: shape "
+                                     f"{out.shape}, golden {golden.shape}")
+            outs[b] = out
+        diffs = {b: lsb_diff(o, golden) for b, o in outs.items()}
+        pairs = {f"{a}-{b}": lsb_diff(outs[a], outs[b])[0]
+                 for i, a in enumerate(names) for b in names[i + 1:]}
+        for k, v in pairs.items():
+            pair_max[k] = max(pair_max.get(k, 0), v)
+        print(f"backends {name} ({kind}): {golden.shape[0]} samples x "
+              f"{golden.shape[1]} ch; vs libvorbis maxdiff/over +/-"
+              f"{GATE_LSB}: " + ", ".join(f"{b} {d[0]}/{d[1]}"
+                                          for b, d in diffs.items())
+              + "; pairs maxdiff: " + ", ".join(f"{k} {v}"
+                                                for k, v in pairs.items()))
+        bad = {b: d for b, d in diffs.items() if d[1]}
+        if bad:
+            raise AssertionError(f"backends {name}: samples over "
+                                 f"+/-{GATE_LSB} LSB: {bad}")
+    for name in PERM_STREAMS:
+        data, golden, _ = streams[name]
+        for b in ("numpy", "native", "torch"):
+            with held_kernels(held):
+                out = packet_loop(data, b, dev)
+                save_restore(data, b, dev)
+            d = lsb_diff(out, golden)
+            if out.shape != golden.shape or d[1]:
+                raise AssertionError(f"backends packets {b} {name}: shape "
+                                     f"{out.shape}, {d[1]} samples over "
+                                     f"+/-{GATE_LSB}")
+        print(f"backends packets {name}: read_dec_packet to the end on "
+              f"numpy, native and torch exact in length, 0 over +/-"
+              f"{GATE_LSB}; save/restore after 10 packets bit for bit on "
+              "each")
+    torch.cuda.synchronize()
+    got = launches()
+    for k in ("floor", "overlap"):
+        if not got[k] or held.get(k, {}).get("calls") != got[k]:
+            raise AssertionError(f"backends: {k} launched {got[k]} times, "
+                                 f"held {held.get(k, {}).get('calls')}")
+    err = {k: c["max_abs_err"] for k, c in held.items()}
+    if any(err.values()):
+        raise AssertionError(f"backends: held launches differ from the "
+                             f"plain versions: {err}")
+    print(f"backends gate ({len(streams)} streams, torch backend "
+          f"{torch_s:.1f} s with every launch held): launches {got}, held "
+          f"against the plain versions (calls, max_abs_err): "
+          + ", ".join(f"{k} {c['calls']}, {c['max_abs_err']}"
+                      for k, c in held.items())
+          + f"; pairs maxdiff {json.dumps(pair_max)}; native routes: "
+          f"one-call {len(routes['one-call'])} streams, packets "
+          f"{len(routes['packets'])} {routes['packets']} | card: {card}")
+    summary = {"streams": len(streams), "launches": got,
+               "native_routes": {k: len(v) for k, v in routes.items()},
+               "pairs_maxdiff": pair_max}
+    summary["capi"] = capi_check(streams, card)
+    summary["taps"] = taps_check(streams, dev, card)
+    summary["floor_curves_ms"] = curves_check(dev, card)
+    summary["x_realtime"] = host_rates(streams, dev, card)
+    print(f"backends phase ({time.perf_counter() - t0:.1f} s): "
+          f"{json.dumps(summary)}")
+    return got, err
+
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -1999,6 +2406,9 @@ def main() -> None:
     # ---- 9. multi-device sharding: ranks of a (dp, tp) mesh ----
     mesh_launches, mesh_err = mesh_phase(dev, card)
 
+    # ---- 10. the reader's backends: numpy and native (CPU), torch ----
+    backends_launches, backends_err = backends_phase(dev, card)
+
     kernels = []
     for key, kname, src, replaces, n_launch in (
             ("floor", "floor_spectra", "floor_kernel.cu", "floor_kernel.py:88",
@@ -2020,9 +2430,12 @@ def main() -> None:
             "source": f"lewton_tpu_torch/csrc/{src}",
             "replaces": f"lewton_tpu/ops/{replaces}",
             # launches: the path's own drive; launches_mesh: the mesh
-            # phase's, summed over its ranks
+            # phase's, summed over its ranks; launches_backends: the
+            # backends phase's torch backend
             "launches": n_launch, "launches_mesh": mesh_launches[key],
-            "max_abs_err": max(err[key], mesh_err.get(key, 0.0)),
+            "launches_backends": backends_launches[key],
+            "max_abs_err": max(err[key], mesh_err.get(key, 0.0),
+                               backends_err.get(key, 0.0)),
             "ms": times[key], "plain_ms": times[f"{key}_plain"],
             "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
             # no single PyTorch call computes any of these functions

@@ -14,20 +14,30 @@ rounded separately (the kernels are held bit-identical to their plain torch
 versions, which round separately), ``-prec-div=true`` for IEEE division and
 no ``-use_fast_math`` (no flush-to-zero, no approximate division).
 
-The host front-end (``native/*.cc``: Ogg demux, header parse, entropy
-decode into frames) is built the same way by the host's C++ compiler, no
-CUDA involved, into ``liblewton_host_<hash>.so`` beside the kernels:
+The host library (``native/*.cc``: Ogg demux, header parse, entropy
+decode into frames, the CPU synthesis decoder, the whole-file decode and
+the lewton-compatible C ABI of ``native/lewton_tpu.h``) is built the same
+way by the host's C++ compiler, no CUDA involved, into
+``liblewton_host_<hash>.so`` beside the kernels (its hash covers
+``native/*.cc``, ``*.h`` and ``*.inc``); C clients link against the stable
+name :func:`capi_library` returns:
 ``-ffp-contract=off`` keeps every float operation rounded as the Python
 front-end rounds it (GCC contracts ``a*b+c`` into an FMA under
-``-march=native`` otherwise), and ``-Wl,-Bsymbolic`` binds the library's
+``-march=native`` otherwise), except in ``lt_synth.cc`` (:data:`CONTRACTED`),
+the CPU decoder, which is built with GCC's default contraction as the
+reference builds its copy (its PCM is held bit for bit to the reference's
+library's), and ``-Wl,-Bsymbolic`` binds the library's
 calls to its own code when another build of the same sources is loaded in
 the process. Its hash also covers what ``-march=native`` means on this host
 (the compiler's predefined macros), so a library built on another CPU is
 never loaded. A file lock lets one process build while the others wait.
+:func:`build_fuzzer` builds ``native/tools/lt_fuzz.cc`` with the same
+sources under ASAN and UBSAN.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -39,14 +49,21 @@ from pathlib import Path
 
 __all__ = ["load_library", "library_path", "compile_library",
            "open_library", "check_operand", "BUILD_DIR",
-           "load_host_library", "host_library_path"]
+           "load_host_library", "host_library_path", "capi_library",
+           "build_fuzzer"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NATIVE = Path(__file__).resolve().parent / "native"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "lewton_tpu_torch"
 HOST_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17",
               "-ffp-contract=off")
+#: sources built with ``-ffp-contract=fast`` in place of ``off``
+CONTRACTED = ("lt_synth.cc",)
 HOST_LINK = ("-shared", "-Wl,-Bsymbolic", "-Wl,--no-undefined", "-pthread")
+#: the sanitizer build of the fuzzer (memory errors and undefined
+#: behaviour abort it)
+FUZZ_FLAGS = ("-O1", "-g", "-std=c++17", "-fsanitize=address,undefined",
+              "-fno-sanitize-recover=all", "-pthread")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH + (
     "-std=c++17", "-O3", "--fmad=false", "-prec-div=true", "-Xptxas=-v",
@@ -160,19 +177,39 @@ def _cxx() -> str:
     return path
 
 
-def host_library_path() -> Path:
-    """Path of the host library for the current sources, flags, compiler
-    and CPU (the compiler's predefined macros under ``-march=native``)."""
+def _host_sources(extra=()) -> list[Path]:
+    """The host library's sources and headers (and ``extra`` files)."""
+    return sorted([*NATIVE.glob("*.cc"), *NATIVE.glob("*.h"),
+                   *NATIVE.glob("*.inc"), *extra])
+
+
+def _host_hash(flags, extra=()) -> str:
+    """Hash of the host sources, ``flags``, the compiler and the CPU (the
+    compiler's predefined macros under ``-march=native``)."""
     cxx = _cxx()
     target = subprocess.run(
         [cxx, *HOST_FLAGS, "-dM", "-E", "-x", "c++", os.devnull],
         capture_output=True, text=True, check=True).stdout
-    h = hashlib.sha256(" ".join(HOST_FLAGS + HOST_LINK).encode())
+    h = hashlib.sha256(" ".join(flags).encode())
     h.update("\n".join(sorted(target.splitlines())).encode())
-    for f in sorted([*NATIVE.glob("*.cc"), *NATIVE.glob("*.h")]):
+    for f in _host_sources(extra):
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    return BUILD_DIR / f"liblewton_host_{h.hexdigest()[:16]}.so"
+    return h.hexdigest()[:16]
+
+
+def host_library_path() -> Path:
+    """Path of the host library for the current sources, flags, compiler
+    and CPU."""
+    return BUILD_DIR / (f"liblewton_host_"
+                        f"{_host_hash(HOST_FLAGS + HOST_LINK + CONTRACTED)}.so")
+
+
+def _host_flags(src: Path) -> tuple:
+    if src.name in CONTRACTED:
+        return tuple("-ffp-contract=fast" if f == "-ffp-contract=off" else f
+                     for f in HOST_FLAGS)
+    return HOST_FLAGS
 
 
 def compile_host_library(so: Path) -> None:
@@ -184,13 +221,22 @@ def compile_host_library(so: Path) -> None:
         cxx = _cxx()
         srcs = sorted(NATIVE.glob("*.cc"))
         objs = [tmp / f"{s.stem}.o" for s in srcs]
-        _run_all([[cxx, *HOST_FLAGS, "-c", "-o", str(o), str(s)]
+        _run_all([[cxx, *_host_flags(s), "-c", "-o", str(o), str(s)]
                   for s, o in zip(srcs, objs)])
         lib = tmp / so.name
         _run_all([[cxx, *HOST_LINK, "-o", str(lib), *map(str, objs), "-lm"]])
         os.replace(lib, so)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+@contextlib.contextmanager
+def _host_lock():
+    """One process at a time builds host code; the others wait."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "host_build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        yield
 
 
 def load_host_library() -> ctypes.CDLL:
@@ -201,15 +247,57 @@ def load_host_library() -> ctypes.CDLL:
         return _host_lib
     so = host_library_path()
     if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        with open(BUILD_DIR / "host_build.lock", "w") as lock:
-            fcntl.flock(lock, fcntl.LOCK_EX)
+        with _host_lock():
             if not so.exists():
                 t0 = time.perf_counter()
                 compile_host_library(so)
                 host_build_seconds = time.perf_counter() - t0
     _host_lib = ctypes.CDLL(str(so))
     return _host_lib
+
+
+def capi_library() -> Path:
+    """The host library under a stable name for C clients of
+    ``native/lewton_tpu.h``: builds it if needed and points
+    ``build/lewton_tpu_torch/liblewton_host.so`` at the current build, so
+    ``cc app.c -I lewton_tpu_torch/native -L build/lewton_tpu_torch
+    -llewton_host`` links against it. Returns the link's path."""
+    so = Path(load_host_library()._name)
+    link = BUILD_DIR / "liblewton_host.so"
+    tmp = BUILD_DIR / f".liblewton_host.{os.getpid()}.lnk"
+    tmp.unlink(missing_ok=True)
+    tmp.symlink_to(so.name)
+    os.replace(tmp, link)  # atomic: a reader sees the old or the new link
+    return link
+
+
+def build_fuzzer() -> Path:
+    """Build (if needed, one process at a time) ``native/tools/lt_fuzz.cc``
+    with the host library's sources under ASAN and UBSAN
+    (:data:`FUZZ_FLAGS`); returns the executable's path. Run it as
+    ``lt_fuzz FILE.ogg ...``: it decodes each file and deterministic
+    mutations of it, and aborts on any sanitizer finding."""
+    main_src = NATIVE / "tools" / "lt_fuzz.cc"
+    exe = BUILD_DIR / f"lt_fuzz_{_host_hash(FUZZ_FLAGS, [main_src])}"
+    if exe.exists():
+        return exe
+    with _host_lock():
+        if exe.exists():
+            return exe
+        tmp = BUILD_DIR / f"{exe.name}.{os.getpid()}.tmp"
+        tmp.mkdir(parents=True, exist_ok=True)
+        try:
+            cxx = _cxx()
+            srcs = [*sorted(NATIVE.glob("*.cc")), main_src]
+            objs = [tmp / f"{s.stem}.o" for s in srcs]
+            _run_all([[cxx, *FUZZ_FLAGS, "-I", str(NATIVE), "-c", "-o",
+                       str(o), str(s)] for s, o in zip(srcs, objs)])
+            _run_all([[cxx, *FUZZ_FLAGS, "-o", str(tmp / exe.name),
+                       *map(str, objs), "-lm"]])
+            os.replace(tmp / exe.name, exe)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    return exe
 
 
 def check_operand(name, t, dtype, shape, device) -> None:

@@ -13,6 +13,9 @@ and granule bookkeeping:
     async for pcm in rdr:           # planar i16 [ch, n] per packet
         ...
 
+``backend=`` takes the sync reader's backends: ``"torch"`` (the default,
+on ``device``), ``"numpy"`` and ``"native"`` (CPU decoders).
+
 A *source* is an object with ``async def read(n) -> bytes`` (asyncio's
 StreamReader qualifies; empty bytes = end of stream) or an async iterator
 of byte chunks. Any chunking works, including byte-at-a-time: when a
@@ -33,7 +36,7 @@ import numpy as np
 
 from .errors import OggError
 from .header import read_header_comment, read_header_ident
-from .inside_ogg import OggStreamReader
+from .inside_ogg import BACKENDS, OggStreamReader
 from .ogg.demux import IncrementalPacketReader
 
 __all__ = ["HeadersReader", "AsyncOggStreamReader"]
@@ -153,9 +156,8 @@ class AsyncOggStreamReader:
 
     @classmethod
     async def new(cls, source, backend: str = "torch", device="cuda"):
-        if backend != "torch":
-            raise ValueError(f"backend {backend!r}: lewton_tpu_torch has "
-                             "the 'torch' backend only")
+        if backend not in BACKENDS:
+            raise ValueError(f"backend {backend!r}: one of {BACKENDS}")
         hr = source if isinstance(source, HeadersReader) \
             else HeadersReader(source)
         await hr.read_headers()

@@ -1,11 +1,15 @@
-"""Audio packet decode, the host half: the per-packet entropy decode.
+"""Audio packet decode: the per-packet "forward pass".
 
-The port's copy of the entropy half of lewton_tpu/audio.py:
-:func:`decode_packet_entropy` reads the mode and window flags, the floor
-posts or coefficients and the residue vectors of one packet into a dense
-:class:`PacketPlan`, which ``models.decoder.pack_frames`` stacks into the
-frames the device decodes. The reference's numpy synthesis is not copied:
-on the port the device synthesizes.
+The port's copy of lewton_tpu/audio.py, in two halves:
+
+1. :func:`decode_packet_entropy` reads the mode and window flags, the floor
+   posts or coefficients and the residue vectors of one packet into a dense
+   :class:`PacketPlan`, which ``models.decoder.pack_frames`` stacks into the
+   frames the device decodes (the ``torch`` backend).
+2. :func:`_synthesize`, the numpy synthesis of the ``numpy`` backend: floor
+   curve, dot product, inverse coupling, an f64 IMDCT rounded once to f32,
+   window/overlap-add against :class:`PreviousWindowRight`, with the four
+   ``debug.record`` tap points.
 
 ref parity: lewton src/audio.rs:919-1173 (read_audio_packet_generic),
 independently implemented from Vorbis I spec section 4.3.
@@ -17,17 +21,37 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from . import debug
 from . import floor as floor_mod
+from . import samples as samples_mod
 from .bitpack import BitCursor, ilog
 from .errors import AudioBadFormat, AudioIsHeader, EndOfPacket
 from .header import IdentHeader, SetupHeader
 from .residue import residue_decode
+from .tables import imdct_matrix, window_slope
 
 __all__ = [
+    "PreviousWindowRight",
     "PacketPlan",
     "decode_packet_entropy",
+    "read_audio_packet",
+    "read_audio_packet_generic",
     "get_decoded_sample_count",
 ]
+
+
+@dataclass
+class PreviousWindowRight:
+    """Per-stream carry state: the unwindowed right half of the previous
+    block (ref: lewton src/audio.rs:848-861). The only inter-packet state."""
+
+    data: np.ndarray | None = None  # f32 [channels, prev_right_len]
+
+    def is_empty(self) -> bool:
+        return self.data is None
+
+    def reset(self) -> None:
+        self.data = None
 
 
 @dataclass
@@ -140,6 +164,94 @@ def decode_packet_entropy(
         mode.blockflag, mode_number, n, prev_flag, next_flag, floors, residue,
         coupling,
     )
+
+
+def _inverse_coupling(residue: np.ndarray, coupling) -> np.ndarray:
+    """Square-polar reconstruction, steps in reverse (spec 4.3.5;
+    ref lewton src/audio.rs:762-777, 991-1002)."""
+    for mag, ang in reversed(coupling):
+        m = residue[mag]
+        a = residue[ang]
+        # m>0, a>0 -> (m, m-a); m>0, a<=0 -> (m+a, m);
+        # m<=0, a>0 -> (m, m+a); m<=0, a<=0 -> (m-a, m)
+        mpos = m > 0
+        apos = a > 0
+        new_m = np.where(mpos, np.where(apos, m, m + a), np.where(apos, m, m - a))
+        new_a = np.where(mpos, np.where(apos, m - a, m), np.where(apos, m + a, m))
+        residue[mag] = new_m
+        residue[ang] = new_a
+    return residue
+
+
+def _synthesize(
+    ident: IdentHeader, plan: PacketPlan, pwr: PreviousWindowRight
+) -> np.ndarray:
+    """Numpy reference of the device half. Returns f32 [channels, out_len]."""
+    n = plan.n
+    n2 = n // 2
+    channels = ident.channels
+
+    debug.record("residue_pre_inverse", plan.residue)
+    residue = _inverse_coupling(plan.residue.copy(), plan.coupling)
+    debug.record("residue_post_inverse", residue)
+
+    # floor curve synthesis + dot product
+    spectra = np.zeros((channels, n2), dtype=np.float32)
+    for ch, f in enumerate(plan.floors):
+        if f[0] == "unused":
+            continue
+        if f[0] == "f0":
+            curve = floor_mod.floor0_curve(f[1], plan.mode_blockflag, n2, ident.sample_rate)
+        else:
+            df = f[1]
+            curve = floor_mod.floor1_synthesis(df.final_y, df.step2_flag, df.floor, n2)
+        spectra[ch] = curve * residue[ch]
+
+    # IMDCT: y = X @ M, f64 accumulation, one rounding to f32
+    debug.record("pre_mdct", spectra)
+    m = imdct_matrix(n, dtype=np.float64)
+    audio = (spectra.astype(np.float64) @ m).astype(np.float32)
+    debug.record("post_mdct", audio)
+
+    left_start, right_start, right_end, left_use_bs1 = _window_geometry(
+        ident, plan.mode_blockflag, plan.prev_window_flag, plan.next_window_flag
+    )
+
+    prev = pwr.data
+    # save the unwindowed right region as next packet's pwr
+    pwr.data = np.ascontiguousarray(audio[:, right_start:right_end])
+
+    if prev is None:
+        return np.zeros((channels, 0), dtype=np.float32)
+
+    plen = prev.shape[1]
+    slope_half = ident.bs1 // 2 if left_use_bs1 else ident.bs0 // 2
+    slope = window_slope(slope_half)
+    if len(slope) < plen:
+        raise AudioBadFormat("window slope shorter than previous right half")
+    lhs = slope[:plen]
+    rhs = lhs[::-1]
+    out = audio[:, left_start:right_start].copy()
+    out[:, :plen] = audio[:, left_start : left_start + plen] * lhs + prev * rhs
+    return out
+
+
+def read_audio_packet_generic(
+    ident: IdentHeader,
+    setup: SetupHeader,
+    packet: bytes,
+    pwr: PreviousWindowRight,
+    fmt: str = "planar_i16",
+) -> np.ndarray:
+    """Decode one audio packet. ``fmt`` in {planar,interleaved}_{i16,f32}."""
+    plan = decode_packet_entropy(ident, setup, packet)
+    out = _synthesize(ident, plan, pwr)
+    return getattr(samples_mod, fmt)(out)
+
+
+def read_audio_packet(ident, setup, packet, pwr):
+    """i16 planar convenience wrapper (ref: lewton src/audio.rs:1170-1173)."""
+    return read_audio_packet_generic(ident, setup, packet, pwr, "planar_i16")
 
 
 def get_decoded_sample_count(

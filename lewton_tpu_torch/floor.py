@@ -1,13 +1,15 @@
-"""Floor decode (types 0 and 1), the packet entropy half.
+"""Floor decode (types 0 and 1): packet entropy half + numpy curve synthesis.
 
-The port's copy of the decode half of lewton_tpu/floor.py: ``floor0_decode``
-and ``floor1_decode`` read the posts or LSP coefficients, and
+The port's copy of lewton_tpu/floor.py: ``floor0_decode`` and
+``floor1_decode`` read the posts or LSP coefficients, and
 ``floor1_amplitudes`` reconstructs the final posts (libvorbis-exact). The
-curves themselves are computed on the device (``ops/floor_curve.py`` and the
-floor kernel), so the reference's numpy curve synthesis is not copied.
+numpy curve synthesis (``floor0_curve``, ``floor1_synthesis``) serves the
+numpy backend (``audio._synthesize``); on the ``torch`` backend the curves
+are computed on the device (``ops/floor_curve.py`` and the floor kernel).
 
-ref parity: lewton src/audio.rs:109-555, independently implemented from
-Vorbis I spec sections 6 and 7.
+ref parity: lewton src/audio.rs:109-555 (floor_zero_decode/compute_curve,
+floor_one_decode, render_point/render_line, curve synthesis), independently
+implemented from Vorbis I spec sections 6 and 7.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 
 from .bitpack import BitCursor, ilog
 from .header import Codebook, Floor0, Floor1
+from .tables import bark_cos_omega, floor1_inverse_db_table
 
 __all__ = [
     "FloorUnused",
@@ -26,7 +29,9 @@ __all__ = [
     "DecodedFloor1",
     "floor0_decode",
     "floor1_decode",
+    "floor0_curve",
     "floor1_amplitudes",
+    "floor1_synthesis",
     "render_point",
     "FLOOR1_RANGES",
 ]
@@ -88,6 +93,55 @@ def floor0_decode(
         # `last` accumulates the final element of each full vector
         # (ref behavior, lewton src/audio.rs:128-151)
         last = np.float32(last + np.float32(vec[-1]))
+
+
+def floor0_curve(df: DecodedFloor0, blockflag: int, n2: int, rate: int) -> np.ndarray:
+    """LSP curve synthesis over the bark map (spec 6.2.3), vectorized.
+
+    The reference shares p/q across runs of equal cos(omega) — a pure
+    optimization; computing per-bin gives bit-identical f32 results.
+    """
+    fl = df.floor
+    cos_omega = bark_cos_omega(n2, fl.rate, fl.bark_map_size)  # f32 [n2]
+    cosc = df.cos_coefficients  # f32 [order]
+    order = fl.order
+    # p/q products in f32, same factor order as the scalar reference loop
+    if order & 1:
+        p = (np.float32(1.0) - cos_omega * cos_omega).astype(np.float32)
+        q = np.full(n2, 0.25, dtype=np.float32)
+        p_js = np.arange(0, (order - 3) // 2 + 1)
+        q_js = np.arange(0, (order - 1) // 2 + 1)
+    else:
+        p = ((np.float32(1.0) - cos_omega) / np.float32(2.0)).astype(np.float32)
+        q = ((np.float32(1.0) + cos_omega) / np.float32(2.0)).astype(np.float32)
+        p_js = q_js = np.arange(0, (order - 2) // 2 + 1)
+    for j in p_js:
+        pm = (cosc[2 * j + 1] - cos_omega).astype(np.float32)
+        p = (p * (np.float32(4.0) * pm * pm)).astype(np.float32)
+    for j in q_js:
+        qm = (cosc[2 * j] - cos_omega).astype(np.float32)
+        q = (q * (np.float32(4.0) * qm * qm)).astype(np.float32)
+    lfv_common = np.float32(
+        np.float32(df.amplitude)
+        * np.float32(fl.amplitude_offset)
+        / np.float32((1 << fl.amplitude_bits) - 1)
+    )
+    arg = np.float32(0.11512925) * (
+        lfv_common / np.sqrt(p + q) - np.float32(fl.amplitude_offset)
+    )
+    # Saturate instead of overflowing to inf: libvorbis (the conformance
+    # oracle) computes plain exp here too, so for args up to the f32 exp
+    # overflow edge (~88.72) we match its f32-rounded value; note libvorbis
+    # computes in double, which stays finite to ~709 — args in (88.72, 709]
+    # produce a finite-but-unrepresentable-in-f32 curve there while we
+    # saturate (reachable only by crafted max-amplitude near-singular-LSP
+    # streams — no encoder emits them). Past that libvorbis goes inf and
+    # then NaN (inf x 0 residue), which no backend can pin. Clamping at
+    # 88.7 (just inside the f32 edge) keeps the divergence window minimal:
+    # huge spectra still clamp to +/-32767, zero residues stay 0 (never
+    # NaN). Deliberate, documented divergence on unreachable input.
+    lfv = np.exp(np.minimum(arg, np.float32(88.7)), dtype=np.float32)
+    return lfv.astype(np.float32)
 
 
 # --------------------------------------------------------------------------- #
@@ -192,3 +246,55 @@ def floor1_amplitudes(y: list[int], fl: Floor1) -> tuple[np.ndarray, np.ndarray]
         255,
     )
     return idx, used
+
+
+def _render_line(x0: int, y0: int, x1: int, y1: int, out: list[int]) -> None:
+    """Integer Bresenham (spec 9.2.7), appending y for x in [x0, x1)."""
+    dy = y1 - y0
+    adx = x1 - x0
+    base = dy // adx if dy >= 0 else -((-dy) // adx)  # trunc toward zero
+    ady = abs(dy) - abs(base) * adx
+    sy = base - 1 if dy < 0 else base + 1
+    y = y0
+    err = 0
+    out.append(y)
+    for _ in range(x0 + 1, x1):
+        err += ady
+        if err >= adx:
+            err -= adx
+            y += sy
+        else:
+            y += base
+        out.append(y)
+
+
+def floor1_synthesis(
+    final_y: np.ndarray, step2: np.ndarray, fl: Floor1, n2: int
+) -> np.ndarray:
+    """Curve synthesis part 2 (spec 7.2.4): Bresenham lines between used
+    posts in sorted-x order, then the inverse-dB table gather.
+
+    ``final_y`` carries INDEX-SPACE values (already multiplied by the
+    floor multiplier and clamped to [0, 255] — see floor1_amplitudes), so
+    the line endpoints are the clamped indexes, exactly like libvorbis's
+    floor1_inverse2."""
+    s = fl.sort_order
+    xs = fl.x_list
+    out: list[int] = []
+    hx = 0
+    hy = 0
+    lx = 0
+    ly = int(final_y[s[0]])
+    for i in range(1, len(xs)):
+        si = s[i]
+        if step2[si]:
+            hy = int(final_y[si])
+            hx = xs[si]
+            _render_line(lx, ly, hx, hy, out)
+            lx, ly = hx, hy
+    if hx < n2:
+        _render_line(hx, hy, n2, hy, out)
+    elif hx > n2:
+        del out[n2:]
+    idx = np.minimum(np.array(out[:n2], dtype=np.int64), 255)
+    return floor1_inverse_db_table()[idx]

@@ -5,14 +5,23 @@ surface (lewton src/inside_ogg.rs:66-314): header reading with serial
 filtering, per-packet decode, chained-stream re-initialization, end-of-stream
 truncation to the page granule, linear sample skip and page-granularity seek.
 
-The port's copy of lewton_tpu/inside_ogg.py with one decode backend,
-``backend="torch"``: the reference's ``backend="jax"`` branches, with the
-numeric half on ``device`` (the card unless the caller names another)
-through ``models.decoder.StreamDecoder``, whose default front-end is the
-port's C++ library (the reader passes it the raw header packets). A byte
-source is demuxed by the same library (``native.NativePacketReader``, the
-same packets as ``ogg.PacketReader``). The reference's ``"numpy"`` and
-``"native"`` backends (its CPU decoders) are not ported.
+The port's copy of lewton_tpu/inside_ogg.py. The decode backend is
+pluggable:
+
+- ``backend="torch"`` (the default; the reference's ``"jax"``): the numeric
+  half on ``device`` (the card unless the caller names another) through
+  ``models.decoder.StreamDecoder``, whose default front-end is the port's
+  C++ library (the reader passes it the raw header packets);
+- ``backend="numpy"``: the numpy synthesis (``audio.read_audio_packet_generic``,
+  an f64 IMDCT), packet by packet, on the CPU;
+- ``backend="native"``: the C++ CPU decoder (``native.NativeDecoder``, one
+  call per chain link), and on a fresh reader ``read_all_i16`` in one call
+  (``native.decode_ogg_i16``).
+
+``"numpy"`` and ``"native"`` are CPU decoders by design, as in the
+reference: ``device`` does not apply to them. A byte source is demuxed by
+the port's C++ library (``native.NativePacketReader``, the same packets as
+``ogg.PacketReader``) on every backend.
 """
 
 from __future__ import annotations
@@ -22,8 +31,13 @@ import io
 import numpy as np
 
 from . import samples as samples_mod
-from .audio import get_decoded_sample_count
-from .errors import OggError
+from . import native
+from .audio import (
+    PreviousWindowRight,
+    get_decoded_sample_count,
+    read_audio_packet_generic,
+)
+from .errors import AudioBadFormat, OggError
 from .header import (
     HeaderSet,
     read_header_comment,
@@ -34,7 +48,9 @@ from .models.decoder import StreamDecoder
 from .native import NativePacketReader
 from .ogg import Packet, PacketReader
 
-__all__ = ["read_headers", "OggStreamReader"]
+__all__ = ["read_headers", "OggStreamReader", "BACKENDS"]
+
+BACKENDS = ("torch", "numpy", "native")
 
 
 def read_headers(rdr: PacketReader) -> tuple[HeaderSet, int]:
@@ -66,9 +82,8 @@ class OggStreamReader:
     """Reads and decodes a (possibly chained) Ogg Vorbis stream."""
 
     def __init__(self, source, backend: str = "torch", device="cuda"):
-        if backend != "torch":
-            raise ValueError(f"backend {backend!r}: lewton_tpu_torch has "
-                             "the 'torch' backend only")
+        if backend not in BACKENDS:
+            raise ValueError(f"backend {backend!r}: one of {BACKENDS}")
         if isinstance(source, (str, bytes, bytearray, memoryview)):
             if isinstance(source, str):
                 with open(source, "rb") as f:
@@ -97,7 +112,9 @@ class OggStreamReader:
         self._setup_hdr = None
         self._raw_headers = (raw_ident, pck.data)
         self.stream_serial = serial
-        self._dec = None
+        self.pwr = PreviousWindowRight()  # the numpy backend's carry
+        self._native_dec = None
+        self._dec = None  # the torch backend's per-packet StreamDecoder
         self._decode_started = False
         # Deliberate improvement over the reference: start granule tracking
         # at 0 so end-of-stream truncation works even when all audio sits on
@@ -109,6 +126,14 @@ class OggStreamReader:
         #: set by read_next_audio_packet when a chained-stream re-init just
         #: happened; the whole-stream path uses it to restart its decoder.
         self._fresh_link = False
+        #: True until any audio packet is consumed or the reader seeks:
+        #: gates the one-call native whole-stream path (read_all_i16)
+        self._pristine = True
+        #: how the last read_all_i16 of the "native" backend ran:
+        #: "one-call" (native.decode_ogg_i16) or "packets" (the per-link
+        #: loop, on a stream the one call hands back, or a reader that has
+        #: read or seeked)
+        self.native_route: str | None = None
         #: incremental-feed support for chained streams: when the packet
         #: source can temporarily run dry (async feed), a chain link's
         #: comment/setup packets may not have been fed yet. With
@@ -136,11 +161,19 @@ class OggStreamReader:
     def _decode(self, packet: bytes) -> np.ndarray:
         """Decode one packet to planar f32 [ch, out].
 
-        Per-packet device decode: a persistent 1-packet-chunk
-        StreamDecoder carries the window state across calls. Correct but
-        launch-bound; for throughput use read_all_* / BatchDecoder, which
-        amortize over whole chunks."""
+        On the torch backend a persistent 1-packet-chunk StreamDecoder
+        carries the window state across calls: correct but launch-bound;
+        for throughput use read_all_* / BatchDecoder, which amortize over
+        whole chunks."""
         self._decode_started = True
+        if self.backend == "native":
+            if self._native_dec is None:
+                self._native_dec = native.NativeDecoder(*self._raw_headers)
+            return self._native_dec.decode(packet)
+        if self.backend == "numpy":
+            return read_audio_packet_generic(
+                self.ident_hdr, self.setup_hdr, packet, self.pwr,
+                fmt="planar_f32")
         if self._dec is None:
             self._dec = self._stream_decoder(chunk=1)
         return self._dec.decode_packets([packet])[0]
@@ -152,10 +185,14 @@ class OggStreamReader:
 
     def _clear_backend_decoders(self) -> None:
         """Drop per-setup decoder instances (chained-stream re-init)."""
+        self._native_dec = None
         self._dec = None
 
     def _reset_decode_state(self) -> None:
-        """Reset the inter-packet window state."""
+        """Reset the inter-packet window state (all backends)."""
+        self.pwr = PreviousWindowRight()
+        if self._native_dec is not None:
+            self._native_dec.reset()
         if self._dec is not None:
             self._dec.reset()
         self._decode_started = False
@@ -179,6 +216,7 @@ class OggStreamReader:
     def read_next_audio_packet(self) -> Packet | None:
         """Next audio packet of the current stream; handles chained-ogg
         re-init (ref: lewton src/inside_ogg.rs:114-158)."""
+        self._pristine = False
         while True:
             pck = self._next_raw_packet()
             if pck is None:
@@ -244,13 +282,24 @@ class OggStreamReader:
         return self.read_dec_packet_generic("interleaved_i16")
 
     def read_all_planar_f32(self) -> np.ndarray:
-        """Decode the whole stream to planar f32 [ch, samples]: host
-        entropy decode, then chunked `decode_frames` on the device."""
-        return self._read_all_device(i16=False)
+        """Decode the whole stream to planar f32 [ch, samples].
 
-    def _read_all_device(self, i16: bool) -> np.ndarray:
-        """Whole-stream loop: decode whole buffers per chain link through a
-        StreamDecoder (f32 or the i16 kernel path), planar [ch, samples].
+        On the torch backend: host entropy decode, then chunked
+        `decode_frames` on the device; the native backend decodes each
+        chain link in one call; the numpy backend packet by packet."""
+        if self.backend == "torch":
+            return self._read_all_device(i16=False)
+        if self.backend == "native":
+            return self._read_all_native()
+        chunks = []
+        while (pck := self.read_next_audio_packet()) is not None:
+            chunks.append(self.dec_packet_planar_f32(pck))
+        return _pad_concat(chunks, self.ident_hdr.channels, np.float32)
+
+    def _read_all_buffered(self, make_dec, decode_buf,
+                           empty_dtype=np.float32) -> np.ndarray:
+        """Shared whole-stream loop of the batching backends (torch and
+        native decode whole buffers per chain link), planar [ch, samples].
 
         Granule bookkeeping (_apply_absgp) is stateful and RESTARTS at 0
         in every chain link, while read_next_audio_packet's re-init
@@ -260,16 +309,13 @@ class OggStreamReader:
         re-init applied link 1's granules on link 2's restarted clock and
         over-truncated the next link's EOS packet)."""
         outs: list[np.ndarray] = []
-        dec = self._stream_decoder()
+        dec = make_dec()
         buf: list[Packet] = []
 
         def flush(d):
             if not buf:
                 return
-            datas = [p.data for p in buf]
-            pcms = (d.decode_packets_i16(datas) if i16
-                    else d.decode_packets(datas))
-            for pck, pcm in zip(buf, pcms):
+            for pck, pcm in zip(buf, decode_buf(d, [p.data for p in buf])):
                 outs.append(self._apply_absgp(pck, pcm))
             buf.clear()
 
@@ -278,34 +324,72 @@ class OggStreamReader:
                 if buf:  # malformed chain: previous link had no EOS page
                     flush(dec)
                     self.cur_absgp = 0  # granules restart per link
-                dec = self._stream_decoder()
+                dec = make_dec()
                 self._fresh_link = False
             buf.append(pck)
             if pck.last_in_stream:
                 flush(dec)  # link ends here: apply absgp BEFORE re-init
         flush(dec)
-        if not outs:
-            return np.zeros((self.ident_hdr.channels, 0),
-                            np.int16 if i16 else np.float32)
-        # chained links may change the channel count; pad to the widest
-        # (reference emits per-packet, we concatenate)
-        ch = max(o.shape[0] for o in outs)
-        outs = [
-            o if o.shape[0] == ch
-            else np.pad(o, [(0, ch - o.shape[0]), (0, 0)])
-            for o in outs
-        ]
-        return np.concatenate(outs, axis=1)
+        return _pad_concat(outs, self.ident_hdr.channels, empty_dtype)
+
+    def _read_all_device(self, i16: bool) -> np.ndarray:
+        """Whole-stream loop of the torch backend: whole buffers per chain
+        link through a StreamDecoder (f32, or the i16 kernel path)."""
+        def decode_buf(d, datas):
+            return (d.decode_packets_i16(datas) if i16
+                    else d.decode_packets(datas))
+
+        return self._read_all_buffered(self._stream_decoder, decode_buf,
+                                       np.int16 if i16 else np.float32)
+
+    def _read_all_native(self) -> np.ndarray:
+        """Whole-stream decode through one native call per chain link."""
+        def decode_buf(d, datas):
+            pcm, lens = d.decode_many(datas)
+            pcms = []
+            for i, n in enumerate(lens.tolist()):
+                if n < 0:
+                    raise AudioBadFormat("undecodable packet")
+                # each row holds its packet packed [C, n] at the start
+                pcms.append(pcm[i].reshape(-1)[: d.channels * n]
+                            .reshape(d.channels, n))
+            return pcms
+
+        return self._read_all_buffered(
+            lambda: native.NativeDecoder(*self._raw_headers), decode_buf)
 
     def read_all_i16(self) -> np.ndarray:
         """Decode the whole stream to interleaved i16 [samples, channels].
         Chained links that change the channel count are padded to the
         widest link (planar layout rules).
 
-        The i16 conversion happens on the device, in the overlap kernel
-        (absgp truncation only drops samples, so truncating the i16 rows is
-        equivalent to truncating f32 first)."""
-        return self._read_all_device(i16=True).T
+        On the torch backend the i16 conversion happens on the device, in
+        the overlap kernel (absgp truncation only drops samples, so
+        truncating the i16 rows is equivalent to truncating f32 first).
+
+        On the native backend a fresh reader decodes the whole stream in
+        ONE native call (demux -> chained headers -> synthesis -> i16;
+        native/lt_file.cc): the per-packet Python loop costs more wall time
+        than the C++ decode itself. A stream that call hands back (return
+        codes -2 to -4: a chain link whose headers it does not parse, with
+        more channels or a larger blocksize) takes the loop below, with the
+        same output; ``native_route`` records which ran."""
+        if self.backend == "torch":
+            return self._read_all_device(i16=True).T
+        if self.backend == "native":
+            self.native_route = "packets"
+            if self._pristine and isinstance(self.rdr, NativePacketReader):
+                res = native.decode_ogg_i16(
+                    self.rdr.data, self.ident_hdr.channels,
+                    1 << self.ident_hdr.blocksize_1)
+                if res is not None:
+                    pcm, absgp = res
+                    self.rdr.consume_all()
+                    self.cur_absgp = absgp
+                    self._pristine = False
+                    self.native_route = "one-call"
+                    return pcm.T
+        return samples_mod.to_i16(self.read_all_planar_f32()).T
 
     # ------------------------------------------------------------------ #
 
@@ -372,25 +456,57 @@ class OggStreamReader:
         read position — pair with your own byte offset for full resume."""
         state = {"cur_absgp": self.cur_absgp, "backend": self.backend,
                  "started": self._decode_started}
-        if self._dec is not None:
-            state["torch"] = self._dec.save_state()
+        if self.backend == "native" and self._native_dec is not None:
+            state["native"] = self._native_dec.save_state()
+        elif self.backend == "torch":
+            if self._dec is not None:
+                state["torch"] = self._dec.save_state()
+        else:
+            state["pwr"] = (
+                None if self.pwr.data is None else self.pwr.data.copy()
+            )
         return state
 
     def restore_decode_state(self, state: dict) -> None:
+        """Load a state of :meth:`save_decode_state` (or of the reference's
+        reader: its numpy and native states have the same keys)."""
         self.cur_absgp = state["cur_absgp"]
         self._decode_started = state["started"]
-        if "torch" in state:
+        if "native" in state:
+            if self._native_dec is None:
+                self._native_dec = native.NativeDecoder(*self._raw_headers)
+            self._native_dec.load_state(state["native"])
+        elif "torch" in state:
             if self._dec is None:
                 self._dec = self._stream_decoder(chunk=1)
             self._dec.load_state(state["torch"])
-        elif self._dec is not None:
-            # a state saved before any decode carries no snapshot: reset
-            # the live decoder back to the fresh-window state
-            self._dec.reset()
+        else:
+            self.pwr = PreviousWindowRight(
+                None if state.get("pwr") is None else state["pwr"].copy()
+            )
+            # a state saved before any decode carries no decoder snapshot:
+            # reset any live decoder back to the fresh-window state
+            if self._dec is not None:
+                self._dec.reset()
+            if self._native_dec is not None:
+                self._native_dec.reset()
 
     def seek_absgp_pg(self, absgp: int) -> None:
         """Page-granularity seek; resets decode state
         (ref: lewton src/inside_ogg.rs:307-313)."""
+        self._pristine = False
         self.rdr.seek_absgp(absgp)
         self.cur_absgp = None
         self._reset_decode_state()
+
+
+def _pad_concat(outs: list, channels: int, dtype) -> np.ndarray:
+    """Planar [ch, n] pieces -> one [ch, sum n]; chained links may change
+    the channel count, so every piece is padded to the widest (the
+    reference emits per packet, the whole-stream paths concatenate)."""
+    if not outs:
+        return np.zeros((channels, 0), dtype)
+    ch = max(o.shape[0] for o in outs)
+    outs = [o if o.shape[0] == ch
+            else np.pad(o, [(0, ch - o.shape[0]), (0, 0)]) for o in outs]
+    return np.concatenate(outs, axis=1)

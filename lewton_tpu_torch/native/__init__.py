@@ -1,15 +1,17 @@
-"""ctypes binding of the port's host front-end library.
+"""ctypes binding of the port's host library.
 
 The C++ sources beside this file are the port's copy of the reference's
-bit-serial host half (lewton_tpu/native/: ``lt_bits``, ``lt_header``,
-``lt_entropy``, ``lt_ogg``): Ogg demux, header parse and Huffman/VQ entropy
-decode into the same dense frames as the Python front-end
+host library (lewton_tpu/native/): Ogg demux, header parse and Huffman/VQ
+entropy decode into the same dense frames as the Python front-end
 (``audio.decode_packet_entropy`` + ``models.decoder.pack_frames``), bit for
-bit. ``_build.load_host_library`` compiles them with the host's C++
-compiler into ``build/lewton_tpu_torch/`` at first use; a failed build
-raises, and nothing here falls back to the Python front-end. The reference's
-CPU synthesis decoder, whole-file decode and C ABI (``lt_synth``,
-``lt_file``, ``lt_capi``) are not part of the port.
+bit (``lt_bits``, ``lt_header``, ``lt_entropy``, ``lt_ogg``); the CPU
+synthesis decoder of the reader's ``"native"`` backend (``lt_synth``,
+:class:`NativeDecoder`), the one-call whole-file decode (``lt_file``,
+:func:`decode_ogg_i16`) and the lewton-compatible C ABI of
+``lewton_tpu.h`` (``lt_capi``; ``_build.capi_library`` gives C clients
+the library's path). ``_build.load_host_library`` compiles them with the
+host's C++ compiler into ``build/lewton_tpu_torch/`` at first use; a
+failed build raises, and nothing here falls back to the Python front-end.
 """
 
 from __future__ import annotations
@@ -19,10 +21,11 @@ import ctypes as C
 import numpy as np
 
 from .. import _build
-from ..errors import BadHeader, OggError
+from ..errors import AudioBadFormat, AudioIsHeader, BadHeader, OggError
 
-__all__ = ["available", "NativeStream", "PacketSpans", "NativePacket",
-           "NativePacketReader", "demux", "demux_spans", "pack12"]
+__all__ = ["available", "NativeStream", "NativeDecoder", "PacketSpans",
+           "NativePacket", "NativePacketReader", "demux", "demux_spans",
+           "decode_ogg_i16", "pack12"]
 
 _lib = None
 
@@ -30,6 +33,7 @@ _u8p, _u32p, _u64p = (C.POINTER(C.c_uint8), C.POINTER(C.c_uint32),
                       C.POINTER(C.c_uint64))
 _i16p, _i32p, _f32p = (C.POINTER(C.c_int16), C.POINTER(C.c_int32),
                        C.POINTER(C.c_float))
+_i64p = C.POINTER(C.c_int64)
 #: the frame outputs every lt_decode_chunk* entry takes, after its inputs:
 #: mode, prev, next, status, residue (by emit dtype), f_used, f1_ys,
 #: f1_flags, f0_cosc, f0_amp, row width
@@ -82,6 +86,30 @@ def _load():
     lib.lt_ogg_packet_data.argtypes = [C.c_void_p, _u8p]
     lib.lt_pack12.restype = C.c_int64
     lib.lt_pack12.argtypes = [_i16p, _u32p, C.c_int64, C.c_int64]
+    # the CPU synthesis decoder (lt_synth.cc) and the whole-file decode
+    lib.lt_decoder_new.restype = C.c_void_p
+    lib.lt_decoder_new.argtypes = [_u8p, C.c_size_t, _u8p, C.c_size_t,
+                                   C.c_char_p, C.c_size_t]
+    for name in ("free", "reset"):
+        fn = getattr(lib, f"lt_decoder_{name}")
+        fn.restype = None
+        fn.argtypes = [C.c_void_p]
+    for name in ("channels", "rate", "n1", "state_plen", "state_started"):
+        fn = getattr(lib, f"lt_decoder_{name}")
+        fn.restype = C.c_int
+        fn.argtypes = [C.c_void_p]
+    lib.lt_decoder_decode.restype = C.c_int
+    lib.lt_decoder_decode.argtypes = [C.c_void_p, _u8p, C.c_size_t, _f32p]
+    lib.lt_decoder_decode_many.restype = None
+    lib.lt_decoder_decode_many.argtypes = [C.c_void_p, _u8p, _u64p, _u64p,
+                                           C.c_int, _f32p, _i32p]
+    lib.lt_decoder_save_state.restype = None
+    lib.lt_decoder_save_state.argtypes = [C.c_void_p, _f32p]
+    lib.lt_decoder_load_state.restype = None
+    lib.lt_decoder_load_state.argtypes = [C.c_void_p, _f32p, C.c_int,
+                                          C.c_int]
+    lib.lt_decode_ogg_i16.restype = C.c_int64
+    lib.lt_decode_ogg_i16.argtypes = [C.c_void_p, _i16p, C.c_int64, _i64p]
     _lib = lib
     return lib
 
@@ -371,6 +399,126 @@ def _demux(data: bytes):
     return blob, lens, serials, flags, absgp, pgran
 
 
+def decode_ogg_i16_rc(data: bytes, channels: int, n1: int):
+    """``lt_decode_ogg_i16`` on a whole Ogg byte stream: (return code,
+    planar i16 [channels, max(rc, 0)], final granule). The code is the
+    samples per channel, or -1 (undecodable audio packet), -2 (a chain
+    link's headers do not parse), -3 (output past the capacity) or -4 (a
+    chain link changes the channel count); lt_file.cc."""
+    lib = _load()
+    src = np.frombuffer(data, dtype=np.uint8)
+    h = lib.lt_ogg_new(_u8(src), len(data))
+    if not h:
+        raise OggError("native ogg demux failed (allocation)")
+    try:
+        count = int(lib.lt_ogg_packet_count(h))
+        # every audio packet emits at most 3*n1/4 samples per channel
+        cap = max(count, 1) * (3 * n1 // 4) + 8
+        pcm = np.zeros((channels, cap), np.int16)
+        absgp = C.c_int64(0)
+        n = int(lib.lt_decode_ogg_i16(h, _ptr(pcm, C.c_int16), cap,
+                                      C.byref(absgp)))
+    finally:
+        lib.lt_ogg_free(h)
+    # copy: a view would pin the worst-case-sized buffer
+    return n, np.ascontiguousarray(pcm[:, :max(n, 0)]), int(absgp.value)
+
+
+def decode_ogg_i16(data: bytes, channels: int, n1: int):
+    """Whole-file decode in ONE native call: Ogg bytes -> (planar i16
+    [channels, total], final granule). Returns None when the stream needs
+    the reader's packet loop (return codes -2, -3 and -4 of
+    :func:`decode_ogg_i16_rc`: a chain link whose headers the library does
+    not parse, a chain link with more channels or a larger blocksize);
+    raises AudioBadFormat on an undecodable audio packet, as the loop
+    does."""
+    n, pcm, absgp = decode_ogg_i16_rc(data, channels, n1)
+    if n == -1:
+        raise AudioBadFormat("undecodable packet")
+    if n < 0:
+        return None
+    return pcm, absgp
+
+
+class NativeDecoder:
+    """The CPU decoder of ``lt_synth.cc``: packets -> planar f32 PCM
+    (entropy decode, floor curves, coupling, an FFT IMDCT and the
+    overlap-add in C++), within +/-2 i16 LSB of libvorbis."""
+
+    def __init__(self, ident_packet: bytes, setup_packet: bytes):
+        lib = _load()
+        self._lib = lib
+        err = C.create_string_buffer(256)
+        ib = np.frombuffer(ident_packet, dtype=np.uint8)
+        sb = np.frombuffer(setup_packet, dtype=np.uint8)
+        self._h = lib.lt_decoder_new(_u8(ib), len(ident_packet), _u8(sb),
+                                     len(setup_packet), err, 256)
+        if not self._h:
+            raise BadHeader(err.value.decode() or "native header parse failed")
+        self.channels = lib.lt_decoder_channels(self._h)
+        self.sample_rate = lib.lt_decoder_rate(self._h)
+        self.n1 = lib.lt_decoder_n1(self._h)
+        # one packet's output: at most 3*n1/4 samples per channel
+        self._buf = np.zeros(self.channels * (3 * self.n1 // 4), np.float32)
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self._lib.lt_decoder_free(self._h)
+            self._h = None
+
+    def reset(self) -> None:
+        self._lib.lt_decoder_reset(self._h)
+
+    def save_state(self) -> dict:
+        """The resumable decode state: {"pwr": the window carry, f32 [C *
+        plen], "plen", "started"}."""
+        plen = self._lib.lt_decoder_state_plen(self._h)
+        started = bool(self._lib.lt_decoder_state_started(self._h))
+        pwr = np.zeros(self.channels * plen, np.float32)
+        if plen:
+            self._lib.lt_decoder_save_state(self._h, _ptr(pwr, C.c_float))
+        return {"pwr": pwr, "plen": plen, "started": started}
+
+    def load_state(self, state: dict) -> None:
+        plen = int(state["plen"])
+        pwr = np.ascontiguousarray(state["pwr"], np.float32)
+        if pwr.size != self.channels * plen:
+            raise ValueError(f"state: {pwr.size} carry values for "
+                             f"{self.channels} channels x plen {plen}")
+        self._lib.lt_decoder_load_state(self._h, _ptr(pwr, C.c_float), plen,
+                                        int(state["started"]))
+
+    def decode_many(self, packets: list[bytes]):
+        """Decode a packet run in one native call (runs of 8 or more on up
+        to 8 threads, the overlap-add in order). Returns (pcm [n, C,
+        3*n1/4] f32, out_lens [n] i32): out_lens[i] is the packet's samples
+        per channel, its row packed [C, out_lens[i]] at the start, or -1
+        (bad packet) / -2 (header packet)."""
+        n = len(packets)
+        row = np.zeros((n, self.channels, 3 * self.n1 // 4), np.float32)
+        out_lens = np.zeros(n, np.int32)
+        if n == 0:
+            return row, out_lens
+        buf = np.frombuffer(b"".join(packets), dtype=np.uint8)
+        lens = np.array([len(p) for p in packets], dtype=np.uint64)
+        offs = (np.cumsum(lens) - lens).astype(np.uint64)
+        self._lib.lt_decoder_decode_many(
+            self._h, _u8(buf), _ptr(offs, C.c_uint64), _ptr(lens, C.c_uint64),
+            n, _ptr(row, C.c_float), _ptr(out_lens, C.c_int32))
+        return row, out_lens
+
+    def decode(self, packet: bytes) -> np.ndarray:
+        """One packet -> planar f32 [C, out_len]. Raises AudioIsHeader or
+        AudioBadFormat on a header or undecodable packet."""
+        pb = np.frombuffer(packet, dtype=np.uint8)
+        n = self._lib.lt_decoder_decode(self._h, _u8(pb), len(packet),
+                                        _ptr(self._buf, C.c_float))
+        if n < 0:
+            raise (AudioIsHeader() if n == -2
+                   else AudioBadFormat("undecodable packet"))
+        return self._buf[: self.channels * n].reshape(self.channels, n).copy()
+
+
 def demux_spans(data: bytes):
     """Demux a whole Ogg byte stream -> (PacketSpans over all packets,
     serials u32 [n], flags u8 [n], absgp u64 [n], page granules u64 [n]);
@@ -417,8 +565,14 @@ class NativePacketReader:
     parses the whole stream up front."""
 
     def __init__(self, data: bytes):
+        #: the Ogg bytes (the one-call whole-file decode reads them)
+        self.data = data
         self._pcks = demux(data)
         self._i = 0
+
+    def consume_all(self) -> None:
+        """Position at the end (the stream was decoded in one call)."""
+        self._i = len(self._pcks)
 
     def read_packet(self) -> NativePacket | None:
         if self._i >= len(self._pcks):

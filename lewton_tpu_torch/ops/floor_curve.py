@@ -1,5 +1,5 @@
 """Floor numerics: floor 1 for the kernels' plain versions and the generic
-path, and the floor-0 LSP curve.
+path, the two exported floor-1 curve ops, and the floor-0 LSP curve.
 
 Torch twins of lewton_tpu/ops/floor_curve.py, op for op. Floor 1 is
 bit-identical: every intermediate is an exactly representable integer
@@ -8,6 +8,14 @@ the same rounding order. The CUDA kernels (csrc/floor_epilogue.cuh) repeat
 the same arithmetic per element. Floor 0 goes through ``sqrt`` and ``exp``,
 which differ by an ulp or two between libraries, so it is held to a
 relative bound instead (tests/test_torch_generic.py).
+
+``floor1_curve_batch`` (bracketing posts by packed max/min reductions over
+the post axis) and ``floor1_curve_mxu`` (the step-matrix contraction, then
+the render) are plain torch ops on the device of their inputs, bit for bit
+equal to each other and to the reference's. The reference fuses the first
+one's [T, C, P, W] compare-selects into its reductions; eager torch
+materialises them (about 10 bytes per element at once), so a caller bounds
+T*C*P*W.
 """
 
 from __future__ import annotations
@@ -19,7 +27,7 @@ from ..tables import floor1_db_four_factor
 
 __all__ = ["BIG_X", "floor1_db_value", "floor1_telescopes", "bresenham_idx",
            "floor1_step_matrix", "floor1_brackets_mxu", "floor1_render",
-           "floor0_curve_batch"]
+           "floor1_curve_batch", "floor1_curve_mxu", "floor0_curve_batch"]
 
 BIG_X = 1 << 24  # sentinel "no post here" x position
 VX = 1 << 15  # virtual tail post x (beyond any real x)
@@ -46,6 +54,64 @@ def floor1_db_value(idx: torch.Tensor) -> torch.Tensor:
     hi = sel4(ia, H1) * sel4(ib, H0)
     lo = sel4(ic, L1) * sel4(il, L0)
     return hi * lo
+
+
+def floor1_curve_batch(xs: torch.Tensor, ys: torch.Tensor,
+                       flags: torch.Tensor, mult: torch.Tensor,
+                       width: int) -> torch.Tensor:
+    """Floor-1 curve f32 [T, C, width] (inverse-dB domain;
+    lewton_tpu/ops/floor_curve.floor1_curve_batch).
+
+    xs: i32 [T, C, P] post x positions, sorted ascending, pad BIG_X; ys:
+    i32 [T, C, P] final_y in the same order; flags: bool [T, C, P] step2
+    flags (pad False); mult: i32 [T, C] floor multiplier. Each bin's
+    bracketing flagged posts come from two reductions over the post axis on
+    packed (x << 11 | y) values: the max such pack with x <= bin is the
+    segment start, the min with x > bin the segment end (x < 2^15 per spec
+    rangebits, y <= 255*4 < 2^11, so packs fit i32 and compare in (x, y)
+    order). Then the Bresenham closed form in integers and the inverse-dB
+    value."""
+    binx = torch.arange(width, dtype=torch.int32, device=xs.device)
+    ysm = ys * mult[:, :, None]
+    pack4 = ((torch.clamp(xs, max=1 << 15) << 11) | ysm)[..., None]
+    xs4 = xs[..., None]
+    fl4 = flags[..., None]
+    none_lo, none_hi = -1, 2 ** 31 - 1
+    lo = torch.where(fl4 & (xs4 <= binx), pack4,
+                     torch.full_like(pack4, none_lo)).amax(2)  # [T, C, W]
+    hi = torch.where(fl4 & (xs4 > binx), pack4,
+                     torch.full_like(pack4, none_hi)).amin(2)
+    # a row with no flagged posts (unused channel, padding) yields the
+    # minimum curve, as the bracket contraction does
+    no_lo = lo == none_lo
+    lo_x = torch.where(no_lo, 0, lo >> 11)
+    lo_y = torch.where(no_lo, 0, lo & 2047)
+    no_hi = hi == none_hi
+    hi_x = torch.where(no_hi, lo_x + 1, hi >> 11)
+    hi_y = torch.where(no_hi, lo_y, hi & 2047)
+
+    # Bresenham closed form between (lo_x, lo_y) and (hi_x, hi_y); every
+    # operand of a division is >= 0, so floor and trunc agree. Past the
+    # last flagged post dy = 0: the horizontal tail.
+    dy = hi_y - lo_y
+    adx = torch.clamp(hi_x - lo_x, min=1)
+    ady = torch.abs(dy)
+    base = torch.sign(dy) * torch.div(ady, adx, rounding_mode="floor")
+    ady_r = ady - torch.abs(base) * adx
+    d = binx - lo_x
+    k = torch.div(d * ady_r, adx, rounding_mode="floor")
+    y = lo_y + base * d + torch.sign(dy) * k
+    return floor1_db_value(torch.clamp(y, 0, 255).to(torch.float32))
+
+
+def floor1_curve_mxu(xs, ys, flags, mult, mode, step,
+                     width: int | None = None) -> torch.Tensor:
+    """Floor-1 curve f32 [T, C, W] through the step-matrix brackets and the
+    render (lewton_tpu/ops/floor_curve.floor1_curve_mxu); W is the step
+    matrix's, which ``width`` must equal when given."""
+    if width is not None and width != step.shape[2]:
+        raise ValueError(f"width {width}, step matrix width {step.shape[2]}")
+    return floor1_render(floor1_brackets_mxu(xs, ys, flags, mult, mode, step))
 
 
 def floor1_telescopes(xs: torch.Tensor, ys: torch.Tensor,

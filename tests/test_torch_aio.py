@@ -8,7 +8,9 @@ through the reference's async reader (its numpy decoder) give the same
 packet lengths and PCM within 1 i16 LSB (the port's device path is held to
 the reference's by as much). Also the header surface, the iterator
 protocol, EOF before the headers (the port's ``OggError``) and the backend
-check.
+check. The CPU backends (``"numpy"``, ``"native"``) at the same steps: the
+port's sync reader on the same backend and the reference's async reader on
+it, bit for bit.
 """
 
 import asyncio
@@ -67,23 +69,23 @@ async def _packets(rdr) -> list:
     return out
 
 
-def _port_packets(data: bytes, step: int, source=_Dribble):
+def _port_packets(data: bytes, step: int, source=_Dribble, backend="torch"):
     async def go():
         rdr = await AsyncOggStreamReader.new(source(data, step),
-                                             device="cpu")
+                                             backend=backend, device="cpu")
         return await _packets(rdr), rdr
     return asyncio.run(go())
 
 
-def _ref_packets(data: bytes, step: int) -> list:
+def _ref_packets(data: bytes, step: int, backend="numpy") -> list:
     async def go():
         return await _packets(await JAsyncReader.new(_Dribble(data, step),
-                                                     backend="numpy"))
+                                                     backend=backend))
     return asyncio.run(go())
 
 
-def _sync_packets(data: bytes) -> list:
-    sync = OggStreamReader(data, device="cpu")
+def _sync_packets(data: bytes, backend="torch") -> list:
+    sync = OggStreamReader(data, backend=backend, device="cpu")
     out = []
     while (pcm := sync.read_dec_packet()) is not None:
         out.append(pcm)
@@ -113,6 +115,26 @@ def test_async_matches_sync_and_reference(name, step):
     assert [r.shape for r in ref] == [g.shape for g in got]
     a, b = np.concatenate(got, axis=1), np.concatenate(ref, axis=1)
     assert np.abs(a.astype(np.int32) - b.astype(np.int32)).max() <= 1
+
+
+@pytest.mark.parametrize("backend", ["numpy", "native"])
+@pytest.mark.parametrize("name,step", [("stereo_44k_q3", 777),
+                                       ("chained_44k", 555),
+                                       ("chained_44k", 17),
+                                       ("tiny_44k", 1)])
+def test_async_cpu_backends(backend, name, step):
+    """The numpy and native backends: every packet as the sync reader's
+    on the same backend and as the reference's async reader's, bit for
+    bit, and the granule at the end."""
+    data = stream_bytes(name)
+    got, rdr = _port_packets(data, step, backend=backend)
+    want, sync = _sync_packets(data, backend)
+    ref = _ref_packets(data, step, backend)
+    assert len(got) == len(want) == len(ref)
+    for g, w, r in zip(got, want, ref):
+        assert g.dtype == np.int16 and g.shape == w.shape == r.shape
+        assert np.array_equal(g, w) and np.array_equal(g, r)
+    assert rdr.get_last_absgp() == sync.get_last_absgp()
 
 
 def test_async_iterator_source():
@@ -175,12 +197,13 @@ def test_async_iterator_protocol():
 
 
 def test_backend_and_source_checks():
-    """Only the 'torch' backend; a source without read() or __aiter__ is
-    refused; the class is built through new()."""
+    """Only the sync reader's backends ('torch', 'numpy', 'native'); a
+    source without read() or __aiter__ is refused; the class is built
+    through new()."""
     data = stream_bytes("tiny_44k")
     with pytest.raises(ValueError, match="torch"):
         asyncio.run(AsyncOggStreamReader.new(_Dribble(data, 100),
-                                             backend="numpy", device="cpu"))
+                                             backend="jax", device="cpu"))
     with pytest.raises(TypeError):
         HeadersReader(object())
     with pytest.raises(TypeError):

@@ -53,7 +53,21 @@ assert {"lewton_tpu_torch.ops.coupling", "lewton_tpu_torch.ops.synth_kernel",
         "lewton_tpu_torch.parallel.pack12",
         "lewton_tpu_torch.parallel.batch",
         "lewton_tpu_torch.native", "lewton_tpu_torch.serve",
-        "lewton_tpu_torch.aio", "lewton_tpu_torch.profiling"} <= set(mods)
+        "lewton_tpu_torch.aio", "lewton_tpu_torch.profiling",
+        "lewton_tpu_torch.debug", "lewton_tpu_torch.utils.bitwriter",
+        "lewton_tpu_torch.ops.floor_curve"} <= set(mods)
+# the reference's public API, and no library built or loaded by the imports
+from lewton_tpu_torch import (AudioBadFormat, AudioIsHeader, BadHeader,
+                              CommentHeader, HeaderIsAudio, HeaderSet,
+                              IdentHeader, NotVorbisHeader, OggError,
+                              OggStreamReader, Packet, PacketReader,
+                              PreviousWindowRight, SetupHeader, VorbisError,
+                              __version__, get_decoded_sample_count,
+                              read_audio_packet, read_audio_packet_generic,
+                              read_header_comment, read_header_ident,
+                              read_header_setup, read_headers)
+from lewton_tpu_torch import _build as _b0
+assert _b0._lib is None and _b0._host_lib is None
 
 import torch
 from lewton_tpu_torch import _build
@@ -117,6 +131,24 @@ with np.load("tests/data/torch_gate/stereo_44k_q3.golden.npz") as z:
     golden = z["pcm"]
 assert out.shape == golden.shape
 assert np.abs(out.astype(np.int32) - golden).max() <= 2
+# the CPU backends: the numpy synthesis (with its debug taps) and the C++
+# decoder, one call and per link
+from lewton_tpu_torch import debug
+with debug.taps() as t:
+    cpu = OggStreamReader("tests/data/torch_gate/stereo_44k_q3.ogg",
+                          backend="numpy").read_all_i16()
+assert len(t["post_mdct"]) > 100
+assert np.abs(cpu.astype(np.int32) - golden).max() <= 2
+for fresh in (True, False):
+    rdr = OggStreamReader("tests/data/torch_gate/stereo_44k_q3.ogg",
+                          backend="native")
+    if not fresh:  # the rest of the stream, after one packet read
+        rdr.read_dec_packet()
+    cpu = rdr.read_all_i16()
+    assert rdr.native_route == ("one-call" if fresh else "packets")
+    assert len(cpu) > len(golden) - 4096
+    assert np.abs(cpu.astype(np.int32) - golden[len(golden) - len(cpu):]
+                  ).max() <= 2
 
 # one scheduler pass (two streams, scan 2) and the async reader
 import asyncio
@@ -183,6 +215,21 @@ def test_no_jax_import_in_sources():
     for d, _, names in os.walk(os.path.join(ROOT, "lewton_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
+    for f in files:
+        with open(f) as fh:
+            assert not pat.search(fh.read()), f
+
+
+def test_no_reference_include_in_native_sources():
+    """The port's C++ sources (the library's, the fuzzer) include no
+    file of the reference's tree."""
+    pat = re.compile(r'^\s*#\s*include\s*[<"][^>"]*lewton_tpu/', re.M)
+    native = os.path.join(ROOT, "lewton_tpu_torch", "native")
+    files = [os.path.join(d, n) for d, _, names in os.walk(native)
+             for n in names if n.endswith((".cc", ".h", ".inc"))]
+    assert {"lt_synth.cc", "lt_file.cc", "lt_capi.cc", "lewton_tpu.h",
+            "lt_inverse_db.inc", "lt_fuzz.cc"} <= set(map(os.path.basename,
+                                                          files))
     for f in files:
         with open(f) as fh:
             assert not pat.search(fh.read()), f
