@@ -60,13 +60,13 @@ stream through the reference's ``serve_scan8`` permutation (capacity 4,
 chunk 64, scan 8; exact length, 0 samples over +/-2 LSB; the chained stream
 held to its first link, the one the scheduler follows) and four of them
 again with the 12-bit transport, K1 flat's launches counted there and
-each held bit for bit against K1's plain version on the same inputs, and
-both again with K1's plain version in the kernel's place, every output bit
-for bit as the kernel run's (``serve gate`` lines); the ``bench.py
---serve`` shape (256 streams over three setups, at scan 1 and 8:
-x_realtime, transfer bytes, latency percentiles, launches, a StageTimer
-split, one untimed wave again on plain K1, bit for bit; one ``serve`` line
-each); and 30 waves of 24
+each launch held bit for bit against its plain version on the same
+inputs, and both again with the plain versions in the kernels' place,
+every output bit for bit as the kernel run's (``serve gate`` lines);
+``python -m lewton_tpu_torch.bench --serve --scan 8`` in-process
+(``serve_bench``: 256 streams over three setups; the bench's line grown
+by launches, a StageTimer split and one untimed wave again on the plain
+versions, bit for bit; the ``serve`` line); and 30 waves of 24
 streams through one scheduler with the host RSS after each (``serve
 soak``). Last, the ``mesh`` phase (``mesh_phase``): ranks of a (dp, tp)
 mesh started by ``lewton_tpu_torch/parallel/launch.py``, gloo ranks that
@@ -81,7 +81,17 @@ for bit, each rank's launches counted; each case run again on the same
 inputs with every kernel launch held against its plain version (bit for
 bit) and the run going on on the plain versions' outputs, equal to the
 kernel run bit for bit; ms per chunk of every rank (``mesh ... timing``
-lines). Every failed check raises, so the exit code
+lines). Then the reader's backends (``backends_phase``). Last, the bench
+phase (``bench_phase``): the five surfaces of ``python -m
+lewton_tpu_torch.bench`` in-process at the reference's defaults (the
+synthesis headline, ``--check``, ``--e2e``, ``--serve``, ``--frontend``),
+each surface's JSON line beside the card's name and power limit, its
+launches counted (the headline's K1 channel-major and K2 X scan x (iters
++ 1) times; ``--check`` within +/-2 LSB with every launch held bit for bit
+against its plain version; ``--serve`` at scan 1 through ``serve_bench``),
+the headline's shape timed four ways just after it (the carry chained or
+fresh, one synchronize or one a call), and the
+``--frontend`` CLI once in a subprocess. Every failed check raises, so the exit code
 is nonzero. The last
 stdout line is ``{"ok": true, "device": {...}}``; the line before it lists
 the kernels as JSON. Needs torch, numpy, nvcc and a C++ compiler.
@@ -92,7 +102,6 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import ctypes
-import hashlib
 import json
 import os
 import platform
@@ -104,10 +113,13 @@ import time
 import numpy as np
 import torch
 
-from lewton_tpu_torch import _build, debug, native, serve
+from lewton_tpu_torch import _build, bench, debug, native, serve
 from lewton_tpu_torch.audio import decode_packet_entropy
+from lewton_tpu_torch.bench import (GATE_DIR, GATE_LSB, SERVE_FILES, gate_pass,
+                                    gate_streams, lsb_diff, permutation_pass,
+                                    serve_gate, stream_packets)
 from lewton_tpu_torch.header import Mode
-from lewton_tpu_torch.inside_ogg import OggStreamReader, read_headers
+from lewton_tpu_torch.inside_ogg import OggStreamReader
 from lewton_tpu_torch.models import decoder
 from lewton_tpu_torch.models.decoder import (StreamDecoder, compile_setup,
                                              decode_frames, decode_frames_core,
@@ -126,6 +138,7 @@ from lewton_tpu_torch.ops.imdct import (dct4_batch_parts_ct,
 from lewton_tpu_torch.ops.windowing import init_window_carry, overlap_table
 from lewton_tpu_torch.ogg import PacketReader
 from lewton_tpu_torch.parallel.batch import BatchDecoder, decode_chunks_scan
+from lewton_tpu_torch.parallel.launch import held_kernels, plain_kernels
 from lewton_tpu_torch.parallel.pack12 import (pack12_np, pack12_supported,
                                              probed_h2d_mb_s)
 from lewton_tpu_torch.profiling import StageTimer
@@ -762,14 +775,8 @@ def profile_path(label, cs, frs, carry0, with_i16, top: int = 8,
         print(f"profile {label}: {us / 1e3 / n_:.4f} ms/chunk  {name[:110]}")
 
 
-GATE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "tests", "data", "torch_gate")
-GATE_LSB = 2  # the conformance contract: within +/-2 i16 LSB of libvorbis
-#: the reference's production permutations (bench.py's conformance check):
-#: (label, scan, transport, compact), each on 2 copies of PERM_STREAMS
-PERMUTATIONS = (("scan8_p12_device", 8, "p12", "device"),
-                ("scan16_p12_device", 16, "p12", "device"),
-                ("scan16_i16_host", 16, "i16", "host"))
+#: the streams of the reference's production permutations (bench.PERMUTATIONS,
+#: each on 2 copies of a stream), and of the other phases' per-stream checks
 PERM_STREAMS = ("stereo_44k_q3", "ch6_44k_q3", "f1_bs8192",
                 "f0_coupled_stereo")
 E2E_STREAM, E2E_S, E2E_SCAN = "stereo_44k_q3", 32, 8
@@ -787,74 +794,13 @@ FRAMES_RESIDUE_DIVERGES: dict = {}
 #: compaction), the f32 path (device compaction) and the split pass
 GATE_KERNELS = ("floor", "floor_flat", "overlap", "floor_cd",
                 "overlap_split")
-#: the reference's serve_scan8 permutation (bench.py --check)
-SERVE_GATE = {"capacity": 4, "chunk": 64, "scan": 8}
-#: bench.py --serve: streams over three setups, capacity S // 3 + 1 (at
-#: least 8), chunk 64, at each scan depth
-SERVE_FILES = ("stereo_44k_q3", "stereo_48k_q5", "mono_16k_q3")
-SERVE_S, SERVE_SCANS = 256, (1, 8)
+#: the serve phase's run of bench.py --serve at another scan depth than
+#: the bench phase's (the reference's default, 1)
+SERVE_ARGV = ("--serve", "--scan", "8")
 #: tools/soak_serve.py's shape: waves of streams through one scheduler,
 #: and the most the median RSS of the last third of the waves may exceed
 #: that of the middle third
 SOAK_WAVES, SOAK_S, SOAK_RSS_MB = 30, 24, 32.0
-
-
-def gate_streams() -> dict:
-    """name -> (ogg bytes, golden i16 [samples, C], kind) of the committed
-    gate streams, each file held to its sha256 in the manifest."""
-    with open(os.path.join(GATE_DIR, "manifest.json")) as f:
-        manifest = json.load(f)
-    out = {}
-    for name, e in manifest["streams"].items():
-        blobs = []
-        for key in ("ogg", "golden"):
-            with open(os.path.join(GATE_DIR, e[key]), "rb") as f:
-                blob = f.read()
-            if hashlib.sha256(blob).hexdigest() != e[key + "_sha256"]:
-                raise AssertionError(f"gate {name}: {e[key]} sha256 differs "
-                                     "from the manifest")
-            blobs.append(blob)
-        with np.load(os.path.join(GATE_DIR, e["golden"])) as z:
-            golden = z["pcm"]
-        out[name] = (blobs[0], golden, e["kind"])
-    return out
-
-
-def lsb_diff(out: np.ndarray, golden: np.ndarray) -> tuple[int, int, int]:
-    """(max |out - golden| in i16 LSB, samples over GATE_LSB, samples that
-    differ at all)."""
-    if not golden.size:
-        return 0, 0, 0
-    d = np.abs(out.astype(np.int32) - golden.astype(np.int32))
-    return int(d.max()), int((d > GATE_LSB).sum()), int((d > 0).sum())
-
-
-def gate_pass(streams: dict, dev, label: str) -> dict:
-    """Every gate stream through OggStreamReader.read_all_i16() on ``dev``:
-    exact length, per-stream max diff and samples over the contract."""
-    res = {}
-    for name, (data, golden, kind) in streams.items():
-        out = OggStreamReader(data, device=dev).read_all_i16()
-        if out.shape != golden.shape:
-            raise AssertionError(f"gate {label} {name}: shape {out.shape}, "
-                                 f"golden {golden.shape}")
-        res[name] = lsb_diff(out, golden)
-        print(f"gate {label} {name} ({kind}): {out.shape[0]} samples x "
-              f"{out.shape[1]} ch, maxdiff {res[name][0]} LSB, "
-              f"{res[name][1]} over +/-{GATE_LSB}, {res[name][2]} differ")
-    return res
-
-
-def stream_packets(data: bytes):
-    """(headers, audio packets) of a single-link stream; the headers carry
-    the raw header packets (``raw_ident``, ``raw_setup``)."""
-    rdr = PacketReader(data)
-    headers, serial = read_headers(rdr)
-    pcks = []
-    while (p := rdr.read_packet()) is not None:
-        if p.stream_serial == serial:
-            pcks.append(p.data)
-    return headers, pcks
 
 
 def stream_links(data: bytes) -> list:
@@ -954,47 +900,6 @@ def frames_phase(streams: dict, dev, card: str) -> dict:
           f"{rates['native']:.1f} packets/s, python {rates['python']:.1f} "
           f"packets/s | card: {card}")
     return rates
-
-
-def gate_permutations(streams: dict, dev) -> dict:
-    """The production permutations of decode_streams_i16 on 2 copies of
-    each PERM_STREAMS stream, on the native front-end. The batch decode
-    applies no granule truncation, so its output holds the golden as a
-    prefix and at most one long block more."""
-    res = {}
-    for label, scan, transport, compact in PERMUTATIONS:
-        for name in PERM_STREAMS:
-            data, golden, _ = streams[name]
-            headers, pcks = stream_packets(data)
-            dec = BatchDecoder(headers.ident, headers.setup, chunk=64,
-                               scan=scan, device=dev,
-                               raw_headers=(headers.raw_ident,
-                                            headers.raw_setup))
-            if dec._sd._native is None:
-                raise AssertionError("the batch decoder is not on the "
-                                     "native front-end")
-            outs = dec.decode_streams_i16([pcks, pcks], compact=compact,
-                                          transport=transport)
-            if name == "stereo_44k_q3" and transport == "p12" and not (
-                    pack12_supported(dec.cs)
-                    and dec.last_stats["transport"] == "p12"
-                    and dec._sd._native.residue_dtype == np.uint32):
-                raise AssertionError("the flagship did not take p12 from "
-                                     "the native emit")
-            if not np.array_equal(outs[0], outs[1]):
-                raise AssertionError(f"perm {label} {name}: the two copies "
-                                     "differ")
-            extra = outs[0].shape[0] - golden.shape[0]
-            if not 0 <= extra <= dec.cs.n1:
-                raise AssertionError(f"perm {label} {name}: {outs[0].shape} "
-                                     f"against golden {golden.shape}")
-            r = lsb_diff(outs[0][: golden.shape[0]], golden)
-            res[f"{label}/{name}"] = r
-            print(f"perm {label} {name}: transport "
-                  f"{dec.last_stats['transport']}, residue emit "
-                  f"{np.dtype(dec._sd._native.residue_dtype).name}, maxdiff "
-                  f"{r[0]} LSB, {r[1]} over +/-{GATE_LSB}, {r[2]} differ")
-    return res
 
 
 STAGES = ("frontend", "h2d", "device", "d2h", "compact", "other")
@@ -1121,7 +1026,7 @@ def conformance(dev, card: str) -> dict:
         setattr(m, a, 0)
     t0 = time.perf_counter()
     direct = gate_pass(streams, dev, "read_all_i16")
-    perms = gate_permutations(streams, dev)
+    perms = permutation_pass(streams, dev, PERM_STREAMS)
     with split_transform():
         split = gate_pass(streams, dev, "read_all_i16 split")
     got = launches()
@@ -1148,21 +1053,6 @@ def conformance(dev, card: str) -> dict:
     return summary
 
 
-def first_link_samples(data: bytes) -> int | None:
-    """The granule of the first link's end: what the scheduler keeps of a
-    chained stream (it follows the first link's serial only); None for a
-    single-link stream."""
-    rdr = PacketReader(data)
-    serial = rdr.read_packet().stream_serial
-    end, links = None, 1
-    while (p := rdr.read_packet()) is not None:
-        if p.stream_serial != serial:
-            links += p.first_in_stream
-        elif p.last_in_stream:
-            end = p.absgp_page
-    return end if links > 1 else None
-
-
 @contextlib.contextmanager
 def p12_wherever_allowed():
     """The scheduler's transport probe answers "p12" for every setup that
@@ -1175,103 +1065,22 @@ def p12_wherever_allowed():
         serve.p12_auto = old
 
 
-@contextlib.contextmanager
-def plain_floor():
-    """The decoder's K1 calls (``floor_stage``'s kernel branch) go to K1's
-    plain torch version on the same card inputs, copied into a tensor of
-    the kernel's strides: at one channel the plain version's [rows, 1, W]
-    keeps a stride of rows*W on its size-1 axis, and the IMDCT GEMM then
-    takes another kernel, whose sum order moves a sample by 1 LSB."""
-    old = decoder.floor_spectra
-
-    def plain(tele, residue, scal, xs, step, steps, ct_out=True, cd_n=0):
-        ref = floor_kernel.floor_spectra_ref(tele, residue, scal, step,
-                                             steps, ct_out, cd_n)
-        return torch.empty(ref.shape, dtype=ref.dtype,
-                           device=ref.device).copy_(ref)
-
-    decoder.floor_spectra = plain
-    try:
-        yield
-    finally:
-        decoder.floor_spectra = old
-
-
-@contextlib.contextmanager
-def k1_held(calls: list):
-    """Every K1 call of the decoder launches the kernel, as on the path,
-    and its output is held against K1's plain version on the same inputs,
-    bit for bit; ``calls`` gets (output shape, max abs error) of each."""
-    old = decoder.floor_spectra
-
-    def held(tele, residue, scal, xs, step, steps, ct_out=True, cd_n=0):
-        out = old(tele, residue, scal, xs, step, steps, ct_out, cd_n)
-        ref = floor_kernel.floor_spectra_ref(tele, residue, scal, step,
-                                             steps, ct_out, cd_n)
-        if not _same_bits(out, ref):
-            raise AssertionError(f"K1 at {tuple(out.shape)} on the serve "
-                                 "path differs from its plain version by "
-                                 f"{float((out - ref).abs().max())}")
-        calls.append((tuple(out.shape), float((out - ref).abs().max())))
-        return out
-
-    decoder.floor_spectra = held
-    try:
-        yield
-    finally:
-        decoder.floor_spectra = old
-
-
 def same_outputs(got: list, want: list, label: str) -> int:
-    """Outputs of a run on K1's plain version against the kernel run's:
-    bit for bit. Returns the largest difference in LSB (0)."""
+    """Outputs of a run on the kernels' plain versions against the kernel
+    run's: bit for bit. Returns the largest difference in LSB (0)."""
     worst = 0
     for i, (a, b) in enumerate(zip(got, want, strict=True)):
         if a.shape != b.shape:
             raise AssertionError(f"{label} output {i}: shape {a.shape} on "
-                                 f"plain K1, {b.shape} on the kernel")
+                                 f"the plain versions, {b.shape} on the "
+                                 "kernels")
         if a.size:
             worst = max(worst, int(np.abs(a.astype(np.int32)
                                           - b.astype(np.int32)).max()))
     if worst:
-        raise AssertionError(f"{label}: plain K1 differs from the kernel "
-                             f"by up to {worst} LSB")
+        raise AssertionError(f"{label}: the plain versions differ from the "
+                             f"kernels by up to {worst} LSB")
     return worst
-
-
-def serve_gate(streams: dict, names, dev, label: str,
-               show: bool = True) -> tuple:
-    """``names`` through one StreamingScheduler(**SERVE_GATE) on ``dev``:
-    exact length, samples over the contract against the libvorbis golden
-    (a chained stream against the golden's first link), no stream errors.
-    Returns (name -> lsb_diff, the outputs in ``names``' order, the
-    scheduler); prints a line per stream with ``show``."""
-    sched = StreamingScheduler(**SERVE_GATE, device=dev)
-    for name in names:
-        sched.add_stream(name, streams[name][0])
-    while sched.step():
-        pass
-    res, outs = {}, []
-    for name in names:
-        data, golden, kind = streams[name]
-        out = sched.poll(name)
-        outs.append(out)
-        end = first_link_samples(data)
-        note = ""
-        if end is not None:
-            golden = golden[:end]
-            note = f", held to its first link ({end} samples)"
-        if out.shape != golden.shape or not sched.is_done(name) \
-                or sched.stream_errors(name):
-            raise AssertionError(f"serve gate{label} {name}: shape "
-                                 f"{out.shape}, golden {golden.shape}, "
-                                 f"errors {sched.stream_errors(name)}")
-        res[name] = lsb_diff(out, golden)
-        if show:
-            print(f"serve gate{label} {name} ({kind}{note}): {out.shape[0]} "
-                  f"samples x {out.shape[1]} ch, maxdiff {res[name][0]} LSB, "
-                  f"{res[name][1]} over +/-{GATE_LSB}, {res[name][2]} differ")
-    return res, outs, sched
 
 
 def rss_mb() -> float:
@@ -1290,12 +1099,11 @@ SERVE_STAGES = ((StreamingScheduler, "add_stream", "register"),
 
 
 @contextlib.contextmanager
-def serve_stages():
-    """A StageTimer around the scheduler's registration of a stream (the
+def serve_stages(timer: StageTimer):
+    """``timer`` around the scheduler's registration of a stream (the
     Python Ogg demux of its bytes, the header parse, a new group's setup),
     the groups' host entropy decode, their whole dispatch (entropy
     included) and their collect."""
-    timer = StageTimer()
     orig = [(cls, n, getattr(cls, n)) for cls, n, _ in SERVE_STAGES]
 
     def timed(label, fn):
@@ -1307,7 +1115,7 @@ def serve_stages():
     for (cls, n, fn), (_, _, label) in zip(orig, SERVE_STAGES):
         setattr(cls, n, timed(label, fn))
     try:
-        yield timer
+        yield
     finally:
         for cls, n, fn in orig:
             setattr(cls, n, fn)
@@ -1329,63 +1137,59 @@ def serve_wave(sched, datas: list, n: int, tag) -> tuple[list, float]:
     return outs, audio
 
 
-def serve_bench(streams: dict, dev, scan: int, card: str) -> dict:
-    """bench.py --serve's shape: SERVE_S streams over SERVE_FILES through
-    one scheduler at ``scan``, after one warm-up stream per setup (its
-    groups, buffers and link probe); every output checked against its
-    golden after the timed run, and against an untimed second wave on K1's
-    plain version, bit for bit. Prints one ``serve`` line."""
+def serve_bench(dev, argv) -> dict:
+    """``python -m lewton_tpu_torch.bench`` ``argv`` (a --serve run) through
+    ``bench.bench_serve``, with the launch counts set to 0 and
+    ``serve_stages`` around its timed part; every output checked against
+    its golden, and against an untimed second wave on the kernels' plain
+    versions, bit for bit. Returns the bench's line, its detail grown by
+    the scan, the groups, the launches, the stage seconds and the plain
+    wave's largest difference."""
+    args = bench.parse_args(argv)
+    streams = gate_streams(SERVE_FILES)
     datas = [streams[n][0] for n in SERVE_FILES]
     goldens = [streams[n][1] for n in SERVE_FILES]
-    sched = StreamingScheduler(capacity=max(8, SERVE_S // len(datas) + 1),
-                               chunk=64, scan=scan, device=dev)
-    serve_wave(sched, datas, len(datas), "warm")
-    sched._completed.clear()  # the latencies of the timed streams only
-    probe = probed_h2d_mb_s(dev)
-    sched.transfer_stats(reset=True)
-    torch.cuda.synchronize()
-    for m, a in COUNTERS.values():
-        setattr(m, a, 0)
-    with serve_stages() as timer:
-        t0 = time.perf_counter()
-        outs, audio = serve_wave(sched, datas, SERVE_S, "bench")
-        wall = time.perf_counter() - t0
+    timer = StageTimer()
+
+    @contextlib.contextmanager
+    def timed():
+        torch.cuda.synchronize()
+        for m, a in COUNTERS.values():
+            setattr(m, a, 0)
+        with serve_stages(timer):
+            yield
+
+    line, outs, sched = bench.bench_serve(args, dev, timed)
     got = launches()
     for i, out in enumerate(outs):
         g = goldens[i % len(datas)]
         if out.shape != g.shape or lsb_diff(out, g)[1]:
-            raise AssertionError(f"serve scan {scan} stream {i}: shape "
+            raise AssertionError(f"serve scan {args.scan} stream {i}: shape "
                                  f"{out.shape} against {g.shape} or samples "
                                  "over the contract")
     if not got["floor_flat"]:
-        raise AssertionError(f"serve scan {scan}: K1 flat never launched "
-                             f"({got})")
+        raise AssertionError(f"serve scan {args.scan}: K1 flat never "
+                             f"launched ({got})")
+    d = line["detail"]
     t = timer.totals
     stages = {"register": t["register"], "entropy": t["entropy"],
               "dispatch_rest": t["dispatch"] - t["entropy"],
               "collect": t["collect"]}
-    stages["other"] = wall - sum(stages.values())
-    stats = sched.transfer_stats()
-    detail = {"streams": SERVE_S, "setups": len(datas), "scan": scan,
-              "capacity": sched.capacity, "chunk": sched.chunk,
-              "groups": sum(len(v) for v in sched.groups.values()),
-              "wall_s": wall, "audio_s": audio,
-              "h2d_bytes": stats["h2d_bytes"], "d2h_bytes": stats["d2h_bytes"],
-              "probed_h2d_mb_s": probe, "latency": sched.latency_stats(),
-              "launches": got, "device_steps": timer.counts["entropy"],
-              "stages_s": stages}
-    # the same wave again on K1's plain version (not timed): bit for bit
-    with plain_floor():
-        plain, _ = serve_wave(sched, datas, SERVE_S, "plain")
+    stages["other"] = d["wall_s"] - sum(stages.values())
+    d |= {"scan": args.scan, "capacity": sched.capacity,
+          "chunk": sched.chunk,
+          "groups": sum(len(v) for v in sched.groups.values()),
+          "launches": got, "device_steps": timer.counts["entropy"],
+          "stages_s": stages}
+    # the same wave again on the plain versions (not timed): bit for bit
+    with plain_kernels():
+        plain, _ = serve_wave(sched, datas, args.streams, "plain")
     if launches() != got:
-        raise AssertionError(f"serve scan {scan}: the plain-K1 wave launched "
-                             f"kernels ({launches()} against {got})")
-    detail["kernel_vs_plain_k1_maxdiff"] = same_outputs(
-        plain, outs, f"serve scan {scan}")
-    print("serve: " + json.dumps({
-        "metric": "serve_realtime_mixed_setups", "value": audio / wall,
-        "unit": "x_realtime", "detail": detail}) + f" | card: {card}")
-    return detail
+        raise AssertionError(f"serve scan {args.scan}: the plain wave "
+                             f"launched kernels ({launches()} against {got})")
+    d["kernel_vs_plain_maxdiff"] = same_outputs(plain, outs,
+                                                f"serve scan {args.scan}")
+    return line
 
 
 def serve_soak(streams: dict, dev, card: str) -> list:
@@ -1427,17 +1231,19 @@ def serve_phase(dev, card: str) -> None:
     """The serving scheduler on the card, on the native front-end: every
     gate stream through StreamingScheduler(**SERVE_GATE), the flagship
     streams again with the 12-bit transport, K1 flat's launches counted
-    across both (set to 0 before, nonzero after), each launch's output held
-    against K1's plain version on the same inputs, and both gates again on
-    K1's plain version, every poll bit for bit as the kernel's; then the
-    bench.py --serve shape at each of SERVE_SCANS, and the soak."""
+    across both (set to 0 before, nonzero after), each launch held against
+    its plain version on the same inputs (``held_kernels``), and both gates
+    again on the plain versions (``plain_kernels``), every poll bit for bit
+    as the kernels'; then ``bench --serve`` at SERVE_ARGV's scan depth
+    (``serve_bench``; the bench phase runs the default, scan 1), and the
+    soak."""
     streams = gate_streams()
     torch.cuda.synchronize()
     for m, a in COUNTERS.values():
         setattr(m, a, 0)
     t0 = time.perf_counter()
-    k1_calls: list = []
-    with k1_held(k1_calls):
+    held: dict = {}
+    with held_kernels(held):
         direct, direct_outs, _ = serve_gate(streams, list(streams), dev, "")
         with p12_wherever_allowed():
             p12, p12_outs, sched = serve_gate(streams, PERM_STREAMS, dev,
@@ -1449,16 +1255,16 @@ def serve_phase(dev, card: str) -> None:
     got = launches()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    # both gates again with K1's plain version on the same card inputs, at
+    # both gates again on the plain versions on the same card inputs, at
     # the shapes the serve path gives K1 (capacity x chunk rows of every
     # group's own P, M, W and C): every poll bit for bit as the kernel's
-    with plain_floor():
+    with plain_kernels():
         _, plain_outs, _ = serve_gate(streams, list(streams), dev, "", False)
         with p12_wherever_allowed():
             _, plain_p12, _ = serve_gate(streams, PERM_STREAMS, dev, "",
                                          False)
     if launches() != got:
-        raise AssertionError("serve gate: the plain-K1 run launched kernels "
+        raise AssertionError("serve gate: the plain run launched kernels "
                              f"({launches()} against {got})")
     plain_diff = max(same_outputs(plain_outs, direct_outs, "serve gate"),
                      same_outputs(plain_p12, p12_outs, "serve gate p12"))
@@ -1468,22 +1274,24 @@ def serve_phase(dev, card: str) -> None:
                        "samples_differ": sum(r[2] for r in res.values())}
                for label, res in (("serve_scan8", direct),
                                   ("serve_scan8_p12", p12))}
+    k1 = held.get("floor_flat", {"calls": 0, "shapes": [],
+                                 "max_abs_err": 0.0})
     print(f"serve gate ({seconds:.1f} s, launches {got}; K1 flat against "
-          f"its plain version on the same inputs at {len(k1_calls)} calls, "
-          f"{len({s for s, _ in k1_calls})} shapes: max_abs_err "
-          f"{max((e for _, e in k1_calls), default=0.0)}; the polls on "
-          f"plain K1 against the kernel's on "
+          f"its plain version on the same inputs at {k1['calls']} calls, "
+          f"{len(k1['shapes'])} shapes: max_abs_err {k1['max_abs_err']}; "
+          f"held {sorted(held)}; the polls on the plain versions against "
+          f"the kernels' on "
           f"{len(plain_outs) + len(plain_p12)} streams: maxdiff {plain_diff} "
           f"LSB): {json.dumps(summary)} | card: {card}")
-    if not got["floor_flat"] or len(k1_calls) != got["floor_flat"]:
-        raise AssertionError(f"serve gate: K1 flat launches {got}, "
-                             f"{len(k1_calls)} calls held")
+    if not got["floor_flat"] or any(
+            held.get(k, {}).get("calls", 0) != n for k, n in got.items()):
+        raise AssertionError(f"serve gate: launches {got}, held {held}")
     bad = {k: v for k, v in summary.items() if v["samples_over_2lsb"]}
     if bad:
         raise AssertionError(f"serve gate: samples over +/-{GATE_LSB} LSB "
                              f"in {bad}")
-    for scan in SERVE_SCANS:
-        serve_bench(streams, dev, scan, card)
+    print("serve: " + json.dumps(serve_bench(dev, SERVE_ARGV))
+          + f" | card: {card}")
     serve_soak(streams, dev, card)
 
 
@@ -2043,8 +1851,6 @@ def backends_phase(dev, card: str) -> tuple[dict, dict]:
     mid-stream save/restore on each backend. Then the C ABI, the debug
     taps, the floor curves and the host rates. Returns the torch backend's
     launches and the held calls' largest error by kernel form."""
-    from lewton_tpu_torch.parallel.launch import held_kernels
-
     t0 = time.perf_counter()
     streams = gate_streams()
     names = ("numpy", "native", "native-packets", "torch")
@@ -2130,6 +1936,180 @@ def backends_phase(dev, card: str) -> tuple[dict, dict]:
           f"{json.dumps(summary)}")
     return got, err
 
+
+#: the bench surfaces (``python -m lewton_tpu_torch.bench``) at the
+#: reference's defaults, in-process: (label, argv)
+BENCH_SURFACES = (("synthesis", []), ("check", ["--check"]),
+                  ("e2e", ["--e2e"]), ("serve", ["--serve"]),
+                  ("frontend", ["--frontend"]))
+BENCH_CLI_TIMEOUT = 300.0  # seconds for the bench's CLI run in a subprocess
+
+
+def bench_launch_check(label: str, line: dict, got: dict,
+                       held: dict) -> None:
+    """Raise unless a bench surface launched what its path launches: the
+    synthesis K1 channel-major and K2 X scan x (iters + 1) times and
+    nothing else; the check within the contract, every launch held bit for
+    bit against its plain version; e2e (device compaction) and serve K1
+    flat; the host-only front-end nothing."""
+    d = line["detail"]
+    if label == "synthesis":
+        n = d["scan"] * (d["iters"] + 1)
+        want = dict.fromkeys(got, 0) | {"floor": n, "overlap": n}
+        if got != want:
+            raise AssertionError(f"bench {label}: launches {got}, expected "
+                                 f"{want}")
+    elif label == "check":
+        if line["value"] > GATE_LSB or d["samples_over_2lsb"] or any(
+                r["samples_over_2lsb"]
+                for r in d["production_permutations"].values()):
+            raise AssertionError(f"bench check over the contract: {line}")
+        for k, n in got.items():
+            if held.get(k, {}).get("calls", 0) != n:
+                raise AssertionError(f"bench check: {k} launched {n} times, "
+                                     f"held {held.get(k)}")
+        if not (got["floor"] and got["floor_flat"] and got["overlap"]):
+            raise AssertionError(f"bench check: launches {got}")
+        if any(c["max_abs_err"] for c in held.values()):
+            raise AssertionError(f"bench check: held launches differ from "
+                                 f"the plain versions: {held}")
+    elif label in ("e2e", "serve"):
+        if not got["floor_flat"]:
+            raise AssertionError(f"bench {label}: K1 flat never launched "
+                                 f"({got})")
+    elif any(got.values()):
+        raise AssertionError(f"bench {label}: the host-only surface "
+                             f"launched {got}")
+
+
+@contextlib.contextmanager
+def card_samples(into: dict):
+    """nvidia-smi sampling the card's SM clock (MHz) and power draw (W)
+    every 100 ms for the block; ``into`` gets the median clock and the
+    largest draw. The sampler is stopped in a ``finally``."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        yield into
+    finally:
+        proc.terminate()
+        try:
+            out, _ = proc.communicate(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+    rows = [tuple(map(float, r.split(","))) for r in out.splitlines()
+            if r.count(",") == 1 and "[" not in r]
+    into["sm_mhz_median"] = (statistics.median(r[0] for r in rows)
+                             if rows else None)
+    into["power_w_max"] = max((r[1] for r in rows), default=None)
+
+
+def synthesis_methods(line: dict, cs, fr0, carry0, card: str) -> None:
+    """Just after the bench's headline, its shape (the main path's frames
+    ``fr0``) timed four ways: the carry chained from call to call (as the
+    bench) or ``carry0`` each call (as ``path_rate``), one synchronize
+    after the --iters calls (as the bench) or one after each (as
+    ``path_rate``), one warm-up call each. Each way: wall ms per chunk over
+    all calls, device ms per chunk from CUDA events around each call
+    (median, first, last), the card's SM clock and power draw while it
+    ran; and the host's enqueue of one chunk. Where the ways' device ms
+    differ, the card ran the same work slower; where only the wall
+    differs, the host did."""
+    d = line["detail"]
+    n, iters = d["scan"], d["iters"]
+    frs = expand(fr0, n)
+    ways = {}
+    for chained, each in ((True, False), (False, True), (False, False),
+                          (True, True)):
+        decode_chunks_scan(cs, frs, carry0, with_i16=True)
+        torch.cuda.synchronize()
+        events = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+                  for _ in range(iters)]
+        c, way = carry0, {}
+        with card_samples(way):
+            t0 = time.perf_counter()
+            for start, end in events:
+                start.record()
+                _, out_carry = decode_chunks_scan(cs, frs, c, with_i16=True)
+                end.record()
+                c = out_carry if chained else carry0
+                if each:
+                    torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        dev_ms = [a.elapsed_time(b) / n for a, b in events]
+        ways[f"{'chained' if chained else 'fresh'} carry, synchronize "
+             f"{'each call' if each else 'once'}"] = way | {
+            "wall_ms_per_chunk": wall / (iters * n) * 1e3,
+            "device_ms_per_chunk": statistics.median(dev_ms),
+            "device_ms_first": dev_ms[0], "device_ms_last": dev_ms[-1]}
+    host = host_enqueue_ms(cs, expand(fr0, 1), carry0)
+    print(f"bench synthesis four ways (same shape, just after: {iters} "
+          f"calls of {n} chunks each; the bench line read "
+          f"{d['wall_s'] / (iters * n) * 1e3:.4f} ms/chunk): "
+          f"{json.dumps(ways)}; host enqueue of one chunk {host:.4f} ms | "
+          f"card: {card}")
+
+
+def bench_phase(dev, card: str, cs, fr0, carry0) -> tuple[dict, dict]:
+    """The five bench surfaces in-process at the reference's defaults, the
+    launch counts set to 0 before each and read after
+    (``bench_launch_check``): the check's launches each held against
+    their plain version (``launch.held_kernels``), the serve surface
+    through ``serve_bench`` (counted over its timed wave, every output
+    held to its golden and to a wave on the plain versions), the headline
+    followed by ``synthesis_methods`` on the main path's frames (``cs``,
+    ``fr0``, ``carry0``). Then ``python -m lewton_tpu_torch.bench
+    --frontend`` once in a subprocess: the CLI stands alone. Returns the
+    launches summed over the surfaces and the held calls' largest error by
+    kernel form."""
+    t0 = time.perf_counter()
+    total = dict.fromkeys(COUNTERS, 0)
+    held: dict = {}
+    for label, argv in BENCH_SURFACES:
+        torch.cuda.synchronize()
+        for m, a in COUNTERS.values():
+            setattr(m, a, 0)
+        ts = time.perf_counter()
+        if label == "serve":
+            line = serve_bench(dev, argv)
+        else:
+            with held_kernels(held) if label == "check" else \
+                    contextlib.nullcontext():
+                line = bench.main(argv)
+        torch.cuda.synchronize()
+        got = launches()
+        print(f"bench {label} (python -m lewton_tpu_torch.bench "
+              f"{' '.join(argv)}; {time.perf_counter() - ts:.1f} s, launches "
+              f"{json.dumps({k: v for k, v in got.items() if v})}): "
+              f"{json.dumps(line)} | card: {card}")
+        bench_launch_check(label, line, got, held)
+        total = {k: total[k] + got[k] for k in total}
+        if label == "synthesis":
+            synthesis_methods(line, cs, fr0, carry0, card)
+    ts = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "lewton_tpu_torch.bench", "--frontend"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=BENCH_CLI_TIMEOUT)
+    if proc.returncode != 0:
+        raise AssertionError("python -m lewton_tpu_torch.bench --frontend "
+                             f"exited {proc.returncode}: {proc.stderr[-3000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    if line["metric"] != "entropy_frontend_packets_per_s":
+        raise AssertionError(f"bench CLI: {line}")
+    print(f"bench frontend CLI (python -m lewton_tpu_torch.bench --frontend "
+          f"in a subprocess, {time.perf_counter() - ts:.1f} s): "
+          f"{json.dumps(line)} | card: {card}")
+    print(f"bench phase ({time.perf_counter() - t0:.1f} s): launches "
+          f"{json.dumps(total)}; the check's held (calls, max_abs_err): "
+          + ", ".join(f"{k} {c['calls']}, {c['max_abs_err']}"
+                      for k, c in held.items()))
+    return total, {k: c["max_abs_err"] for k, c in held.items()}
 
 
 def main() -> None:
@@ -2409,6 +2389,9 @@ def main() -> None:
     # ---- 10. the reader's backends: numpy and native (CPU), torch ----
     backends_launches, backends_err = backends_phase(dev, card)
 
+    # ---- 11. the bench surfaces: python -m lewton_tpu_torch.bench ----
+    bench_launches, bench_err = bench_phase(dev, card, cs, fr0, carry0)
+
     kernels = []
     for key, kname, src, replaces, n_launch in (
             ("floor", "floor_spectra", "floor_kernel.cu", "floor_kernel.py:88",
@@ -2431,11 +2414,14 @@ def main() -> None:
             "replaces": f"lewton_tpu/ops/{replaces}",
             # launches: the path's own drive; launches_mesh: the mesh
             # phase's, summed over its ranks; launches_backends: the
-            # backends phase's torch backend
+            # backends phase's torch backend; launches_bench: the bench
+            # surfaces', summed
             "launches": n_launch, "launches_mesh": mesh_launches[key],
             "launches_backends": backends_launches[key],
+            "launches_bench": bench_launches[key],
             "max_abs_err": max(err[key], mesh_err.get(key, 0.0),
-                               backends_err.get(key, 0.0)),
+                               backends_err.get(key, 0.0),
+                               bench_err.get(key, 0.0)),
             "ms": times[key], "plain_ms": times[f"{key}_plain"],
             "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
             # no single PyTorch call computes any of these functions

@@ -32,7 +32,8 @@ the process. Its hash also covers what ``-march=native`` means on this host
 (the compiler's predefined macros), so a library built on another CPU is
 never loaded. A file lock lets one process build while the others wait.
 :func:`build_fuzzer` builds ``native/tools/lt_fuzz.cc`` with the same
-sources under ASAN and UBSAN.
+sources under ASAN and UBSAN, :func:`build_bench` the entropy front-end's
+packets/s benchmark ``native/tools/lt_bench.cc`` with the library's flags.
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ from pathlib import Path
 __all__ = ["load_library", "library_path", "compile_library",
            "open_library", "check_operand", "BUILD_DIR",
            "load_host_library", "host_library_path", "capi_library",
-           "build_fuzzer"]
+           "build_fuzzer", "build_bench"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NATIVE = Path(__file__).resolve().parent / "native"
@@ -271,14 +272,13 @@ def capi_library() -> Path:
     return link
 
 
-def build_fuzzer() -> Path:
-    """Build (if needed, one process at a time) ``native/tools/lt_fuzz.cc``
-    with the host library's sources under ASAN and UBSAN
-    (:data:`FUZZ_FLAGS`); returns the executable's path. Run it as
-    ``lt_fuzz FILE.ogg ...``: it decodes each file and deterministic
-    mutations of it, and aborts on any sanitizer finding."""
-    main_src = NATIVE / "tools" / "lt_fuzz.cc"
-    exe = BUILD_DIR / f"lt_fuzz_{_host_hash(FUZZ_FLAGS, [main_src])}"
+def _build_program(main_src: Path, name: str, flags_of, link_flags) -> Path:
+    """Build (if needed, one process at a time) the program ``main_src``
+    with the host library's sources, each compiled with ``flags_of(src)``
+    and in parallel, into ``BUILD_DIR/<name>_<hash>``; returns its path."""
+    srcs = [*sorted(NATIVE.glob("*.cc")), main_src]
+    flags = [f for s in srcs for f in flags_of(s)] + list(link_flags)
+    exe = BUILD_DIR / f"{name}_{_host_hash(flags, [main_src])}"
     if exe.exists():
         return exe
     with _host_lock():
@@ -288,16 +288,37 @@ def build_fuzzer() -> Path:
         tmp.mkdir(parents=True, exist_ok=True)
         try:
             cxx = _cxx()
-            srcs = [*sorted(NATIVE.glob("*.cc")), main_src]
             objs = [tmp / f"{s.stem}.o" for s in srcs]
-            _run_all([[cxx, *FUZZ_FLAGS, "-I", str(NATIVE), "-c", "-o",
+            _run_all([[cxx, *flags_of(s), "-I", str(NATIVE), "-c", "-o",
                        str(o), str(s)] for s, o in zip(srcs, objs)])
-            _run_all([[cxx, *FUZZ_FLAGS, "-o", str(tmp / exe.name),
+            _run_all([[cxx, *link_flags, "-o", str(tmp / exe.name),
                        *map(str, objs), "-lm"]])
             os.replace(tmp / exe.name, exe)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
     return exe
+
+
+def build_fuzzer() -> Path:
+    """Build (if needed, one process at a time) ``native/tools/lt_fuzz.cc``
+    with the host library's sources under ASAN and UBSAN
+    (:data:`FUZZ_FLAGS`); returns the executable's path. Run it as
+    ``lt_fuzz FILE.ogg ...``: it decodes each file and deterministic
+    mutations of it, and aborts on any sanitizer finding."""
+    return _build_program(NATIVE / "tools" / "lt_fuzz.cc", "lt_fuzz",
+                          lambda src: FUZZ_FLAGS, FUZZ_FLAGS)
+
+
+def build_bench() -> Path:
+    """Build (if needed, one process at a time) ``native/tools/lt_bench.cc``
+    with the host library's sources and the library's own flags (plus
+    ``-g``, a profiler's target); returns the executable's path. Run it as
+    ``lt_bench FILE.ogg [REPEAT]``: packets/s of the entropy front-end
+    (``lt_decode_chunk`` in chunks of 128 packets) on the file's audio
+    packets, ``REPEAT`` (40) times over."""
+    return _build_program(NATIVE / "tools" / "lt_bench.cc", "lt_bench",
+                          lambda src: (*_host_flags(src), "-g"),
+                          ("-pthread",))
 
 
 def check_operand(name, t, dtype, shape, device) -> None:

@@ -94,13 +94,14 @@ def _zero_counters() -> None:
 
 
 def spawn(dp: int, tp: int, job: str, out, backend: str = "gloo",
-          device: str = "cpu", spec=None, init_file=None,
+          device: str = "cuda", spec=None, init_file=None,
           timeout: float = 120.0, collective_timeout: float = 60.0) -> Path:
     """Run ``job`` on dp * tp rank processes and wait for all of them; raise
     :class:`RankFailed` (with the tail of the failed rank's log) when one
     exits non-zero or ``timeout`` seconds pass, after killing the others.
     Each collective of a rank fails after ``collective_timeout`` seconds.
-    Returns the output directory."""
+    The ranks decode on ``device`` (the card unless the caller names
+    another). Returns the output directory."""
     out = Path(out)
     out.mkdir(parents=True, exist_ok=True)
     init_file = Path(init_file) if init_file else out / "init"
@@ -328,6 +329,24 @@ def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 @contextlib.contextmanager
+def _swapped(make):
+    """Each kernel wrapper of :data:`HELD` replaced for the block by
+    ``make(wrapper, its plain version, drop_xs)`` (``drop_xs``: the plain
+    version takes no ``xs``), the wrappers restored in a ``finally``."""
+    saved = []
+    try:
+        for mod, name, ref_name in HELD:
+            m = importlib.import_module(f"lewton_tpu_torch.{mod}")
+            saved.append((m, name, getattr(m, name)))
+            setattr(m, name, make(getattr(m, name), getattr(m, ref_name),
+                                  name == "floor_spectra"))
+        yield
+    finally:
+        for m, name, fn in reversed(saved):
+            setattr(m, name, fn)
+
+
+@contextlib.contextmanager
 def held_kernels(calls: dict):
     """Every kernel wrapper the decoder calls (:data:`HELD`) launches its
     kernel as on the path, then holds each output against the kernel's
@@ -337,8 +356,6 @@ def held_kernels(calls: dict):
     to another kernel), so the run goes on on the plain versions. ``calls``
     gets, per kernel form that launched (:data:`COUNTERS`' names), the
     calls, their output shapes and the largest difference."""
-    saved = []
-
     def hold(kern, ref, drop_xs):
         def held(*a, **kw):
             before = _counters()
@@ -368,16 +385,35 @@ def held_kernels(calls: dict):
             return got
         return held
 
-    try:
-        for mod, name, ref_name in HELD:
-            m = importlib.import_module(f"lewton_tpu_torch.{mod}")
-            saved.append((m, name, getattr(m, name)))
-            setattr(m, name, hold(getattr(m, name), getattr(m, ref_name),
-                                  name == "floor_spectra"))
+    with _swapped(hold):
         yield calls
-    finally:
-        for m, name, fn in saved:
-            setattr(m, name, fn)
+
+
+def _plain(ref, drop_xs: bool):
+    """A kernel wrapper's stand-in: its plain version, each fresh output
+    copied into a tensor of the kernel's (contiguous) strides. A plain
+    output's stride on a size-1 axis would send the GEMM after it to
+    another kernel, whose sum order moves a sample by 1 LSB."""
+    def plain(*a, **kw):
+        got = ref(*(a[:3] + a[4:] if drop_xs else a), **kw)
+
+        def fresh(t):
+            if t is kw.get("out"):
+                return t
+            return torch.empty(t.shape, dtype=t.dtype,
+                               device=t.device).copy_(t)
+        return tuple(map(fresh, got)) if isinstance(got, tuple) \
+            else fresh(got)
+    return plain
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every kernel wrapper the decoder calls (:data:`HELD`) replaced by
+    its plain torch version for the block (outputs in the kernels'
+    strides), restored in a ``finally``: the decode launches no kernel."""
+    with _swapped(lambda kern, ref, drop_xs: _plain(ref, drop_xs)):
+        yield
 
 
 def job_cases(mesh, args, run=run_case) -> None:

@@ -3,7 +3,8 @@ wrappers run the plain versions and launch nothing.
 
 The machine with the card has no JAX, so every module of
 ``lewton_tpu_torch`` and ``chip_smoke.py`` is imported in a subprocess
-whose import hook refuses ``jax`` and ``lewton_tpu``; the same subprocess
+whose import hook refuses ``jax``, ``lewton_tpu`` and the reference's
+``tools``; the same subprocess
 decodes a small chunk on the CPU through every path and a committed gate
 stream from the file through ``OggStreamReader.read_all_i16`` (within
 +/-2 LSB of its libvorbis golden) on the native front-end, and checks that
@@ -30,7 +31,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _GUARDED = r'''
 import importlib, pkgutil, sys
 
-REFUSED = ("jax", "jaxlib", "lewton_tpu")
+REFUSED = ("jax", "jaxlib", "lewton_tpu", "tools")
 
 class NoJax:
     def find_spec(self, name, path=None, target=None):
@@ -55,7 +56,9 @@ assert {"lewton_tpu_torch.ops.coupling", "lewton_tpu_torch.ops.synth_kernel",
         "lewton_tpu_torch.native", "lewton_tpu_torch.serve",
         "lewton_tpu_torch.aio", "lewton_tpu_torch.profiling",
         "lewton_tpu_torch.debug", "lewton_tpu_torch.utils.bitwriter",
-        "lewton_tpu_torch.ops.floor_curve"} <= set(mods)
+        "lewton_tpu_torch.ops.floor_curve", "lewton_tpu_torch.bench",
+        "lewton_tpu_torch.examples.perf",
+        "lewton_tpu_torch.examples.player"} <= set(mods)
 # the reference's public API, and no library built or loaded by the imports
 from lewton_tpu_torch import (AudioBadFormat, AudioIsHeader, BadHeader,
                               CommentHeader, HeaderIsAudio, HeaderSet,
@@ -181,6 +184,15 @@ async def first_packets():
     rdr = await AsyncOggStreamReader.new(Source(), device="cpu")
     return [await rdr.read_dec_packet() for _ in range(3)]
 assert [p.shape[0] for p in asyncio.run(first_packets())] == [2, 2, 2]
+
+# the bench's synthesis and e2e surfaces, tiny, on the CPU
+import contextlib, io
+from lewton_tpu_torch import bench
+with contextlib.redirect_stdout(io.StringIO()):
+    line = bench.main(["--cpu", "--streams", "2", "--chunk", "4", "--iters",
+                       "1", "--scan", "1"])
+    e2e = bench.main(["--cpu", "--e2e", "--streams", "1", "--scan", "1"])
+assert line["detail"]["platform"] == e2e["detail"]["platform"] == "cpu"
 assert (floor_kernel.LAUNCHES, floor_kernel.LAUNCHES_FLAT,
         floor_kernel.LAUNCHES_CD, overlap_kernel.LAUNCHES,
         overlap_kernel.LAUNCHES_SPLIT, overlap_kernel.LAUNCHES_AUDIO,
@@ -209,7 +221,9 @@ def test_port_imports_without_jax():
 
 
 def test_no_jax_import_in_sources():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|lewton_tpu)\b",
+    """No source of the port (nor chip_smoke.py) imports JAX, the JAX
+    package or the reference's ``tools``."""
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|lewton_tpu|tools)\b",
                      re.M)
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "lewton_tpu_torch")):
@@ -228,7 +242,8 @@ def test_no_reference_include_in_native_sources():
     files = [os.path.join(d, n) for d, _, names in os.walk(native)
              for n in names if n.endswith((".cc", ".h", ".inc"))]
     assert {"lt_synth.cc", "lt_file.cc", "lt_capi.cc", "lewton_tpu.h",
-            "lt_inverse_db.inc", "lt_fuzz.cc"} <= set(map(os.path.basename,
+            "lt_inverse_db.inc", "lt_fuzz.cc",
+            "lt_bench.cc"} <= set(map(os.path.basename,
                                                           files))
     for f in files:
         with open(f) as fh:

@@ -510,7 +510,7 @@ def test_dryrun_job(tmp_path, capsys):
 
     __graft_entry__.dryrun_multichip(4)
     want = capsys.readouterr().out.strip()
-    spawn(2, 2, "dryrun", tmp_path, timeout=RANK_TIMEOUT,
+    spawn(2, 2, "dryrun", tmp_path, "gloo", "cpu", timeout=RANK_TIMEOUT,
           collective_timeout=COLLECTIVE_TIMEOUT)
     log = (tmp_path / "rank0.log").read_text()
     assert want.startswith("dryrun_multichip ok: mesh dp=2 tp=2")
@@ -527,8 +527,8 @@ def test_a_failed_rank_fails_the_launch(tmp_path):
     t0 = time.monotonic()
     with pytest.raises(RankFailed,
                        match=r"rank 1 exited 1(.|\n)*rank 1 fails on purpose"):
-        spawn(1, 2, JOB, tmp_path, spec=spec, timeout=RANK_TIMEOUT,
-              collective_timeout=COLLECTIVE_TIMEOUT)
+        spawn(1, 2, JOB, tmp_path, "gloo", "cpu", spec=spec,
+              timeout=RANK_TIMEOUT, collective_timeout=COLLECTIVE_TIMEOUT)
     assert time.monotonic() - t0 < RANK_TIMEOUT / 2
 
 

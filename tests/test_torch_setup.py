@@ -201,12 +201,38 @@ def test_gate_floor0():
     _gated(ident, read_header_setup(setup_pkt, ident))
 
 
+def _spawn_default(tmp) -> torch.device:
+    """One dryrun rank at spawn's default device: the rank builds its mesh
+    with ``make_mesh(..., "cuda")``, which raises without a card, and
+    decodes there; returns that device once the rank reports its decode."""
+    from lewton_tpu_torch.parallel.launch import spawn
+
+    spawn(1, 1, "dryrun", tmp, timeout=120.0, collective_timeout=60.0)
+    assert "dryrun_multichip ok" in (tmp / "rank0.log").read_text()
+    return torch.device("cuda")
+
+
+def _bench_default() -> torch.device:
+    """The device of the bench's surfaces without --cpu."""
+    from lewton_tpu_torch import bench
+
+    args = bench.parse_args([])
+    assert not args.cpu
+    return bench.resolve_device(args.cpu)
+
+
 @pytest.mark.parametrize("name", ["compile_setup", "from_jax_setup",
-                                  "init_window_carry"])
-def test_entry_points_default_to_the_card(name):
+                                  "init_window_carry", "spawn",
+                                  "bench.main"])
+def test_entry_points_default_to_the_card(name, tmp_path):
     """The port's entry points that create tensors put them on the card
     unless the caller names another device; without a card such a call
-    fails instead of running on the CPU."""
+    fails instead of running on the CPU. ``parallel.launch.spawn`` starts
+    its ranks on the card, and ``bench.main`` (``python -m
+    lewton_tpu_torch.bench``) runs on the card unless ``--cpu`` is given."""
+    from lewton_tpu_torch import bench
+    from lewton_tpu_torch.parallel.launch import spawn
+
     calls = {
         "compile_setup": (compile_setup,
                           lambda: compile_setup(*synthetic_headers()).device),
@@ -215,11 +241,19 @@ def test_entry_points_default_to_the_card(name):
             .device),
         "init_window_carry": (init_window_carry,
                               lambda: init_window_carry(2, 1024, 3)[0].device),
+        "spawn": (spawn, lambda: _spawn_default(tmp_path)),
+        "bench.main": (None, _bench_default),
     }
     fn, call = calls[name]
-    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if fn is not None:
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
     if torch.cuda.is_available():
         assert call().type == "cuda"
     else:
         with pytest.raises((AssertionError, RuntimeError)):
             call()
+    if name == "bench.main" and not torch.cuda.is_available():
+        for surface in ([], ["--check"], ["--e2e"], ["--serve"],
+                        ["--frontend"]):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                bench.main(surface)
