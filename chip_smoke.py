@@ -37,8 +37,24 @@ Each path's first chunks are anchored to the port's plain path on the CPU.
 It times the kernels against their plain versions (with each kernel's
 bound: the larger of its bytes over the card's memory rate and its
 operations over the FP32 peak), each stage of a main path chunk and each
-path on its kernels and on its plain versions, and profiles one call of
-each path (device busy share, device time per op).
+path on its kernels and on its plain versions (the main path as one
+chunk program, ``parallel.graphs``, its CUDA graph replayed), and
+profiles one call of each path (device busy share, device time per op).
+
+The graphs phase (``graphs_phase``): the i16 main path (N=16) and the f32
+path (N=4) each as one chunk program, its replay bit for bit against the
+eager decode (PCM, out_len, carry) and inside ``graphs.eager()``, its
+replay's launches against those recorded at capture and against a
+profile of one replay (K1 and K2 N times each, one graph launch, no
+kernel launch on the host), graph against eager alternated (host ms a
+call, wall ms a chunk, busy share), the capture's seconds and the pool's
+MB; then ``BatchDecoder.decode_streams_i16`` at ``compact="device"``
+(256 x 30 s, bench.py --e2e's shape) and ``"host"`` (32 streams), graph
+against eager bit for bit, the programs captured, the pool's MB, the
+card's memory, each way's stage split and a profile of one replay of its
+deepest program. Every later phase runs with graphs on. A replay's
+launches do not pass through the wrappers: they are counted apart
+(``launch.REPLAYED``, :func:`replayed`) from the wrappers' own.
 
 Last, the host-facing path. The frames phase: every audio packet of the
 committed streams of ``tests/data/torch_gate/`` through the port's native
@@ -66,9 +82,11 @@ every output bit for bit as the kernel run's (``serve gate`` lines);
 ``python -m lewton_tpu_torch.bench --serve --scan 8`` in-process
 (``serve_bench``: 256 streams over three setups; the bench's line grown
 by launches, a StageTimer split and one untimed wave again on the plain
-versions, bit for bit; the ``serve`` line); and 30 waves of 24
-streams through one scheduler with the host RSS after each (``serve
-soak``). Last, the ``mesh`` phase (``mesh_phase``): ranks of a (dp, tp)
+versions, bit for bit, the timed wave's program first uses apart from
+its replays, and the card's memory; the ``serve`` line); and 30 waves of
+24 streams through one scheduler with the host RSS, the card's memory and
+the programs made after each, failing if the card's memory grows after
+the middle third (``serve soak``). Last, the ``mesh`` phase (``mesh_phase``): ranks of a (dp, tp)
 mesh started by ``lewton_tpu_torch/parallel/launch.py``, gloo ranks that
 share card 0 at (2, 1), (2, 2) and (1, 3) and, on a machine with two or
 more cards, NCCL ranks one per card: ``decode_chunk_sharded`` at the
@@ -86,10 +104,12 @@ phase (``bench_phase``): the five surfaces of ``python -m
 lewton_tpu_torch.bench`` in-process at the reference's defaults (the
 synthesis headline, ``--check``, ``--e2e``, ``--serve``, ``--frontend``),
 each surface's JSON line beside the card's name and power limit, its
-launches counted (the headline's K1 channel-major and K2 X scan x (iters
-+ 1) times; ``--check`` within +/-2 LSB with every launch held bit for bit
-against its plain version; ``--serve`` at scan 1 through ``serve_bench``),
-the headline's shape timed four ways just after it (the carry chained or
+launches counted (the headline's K1 channel-major and K2 X scan times
+through the wrappers in the warm-up call that captures its program, and
+scan x iters times in its replays, held to a profile of one replay;
+``--check`` within +/-2 LSB with every launch held bit for bit against
+its plain version; ``--serve`` at scan 1 through ``serve_bench``), the
+headline's shape timed four ways just after it (the carry chained or
 fresh, one synchronize or one a call), and the
 ``--frontend`` CLI once in a subprocess. Every failed check raises, so the exit code
 is nonzero. The last
@@ -137,6 +157,7 @@ from lewton_tpu_torch.ops.imdct import (dct4_batch_parts_ct,
                                         split_cd_head, sum_order_bound)
 from lewton_tpu_torch.ops.windowing import init_window_carry, overlap_table
 from lewton_tpu_torch.ogg import PacketReader
+from lewton_tpu_torch.parallel import graphs, launch
 from lewton_tpu_torch.parallel.batch import BatchDecoder, decode_chunks_scan
 from lewton_tpu_torch.parallel.launch import held_kernels, plain_kernels
 from lewton_tpu_torch.parallel.pack12 import (pack12_np, pack12_supported,
@@ -552,7 +573,37 @@ COUNTERS = {"floor": (floor_kernel, "LAUNCHES"),
 
 
 def launches() -> dict:
+    """Each kernel form's launches made by its wrapper since the counts were
+    last set to 0."""
     return {k: getattr(m, a) for k, (m, a) in COUNTERS.items()}
+
+
+def replayed() -> dict:
+    """Each kernel form's launches made by replayed CUDA graphs since the
+    counts were last set to 0 (``launch.REPLAYED``: the launches each
+    program recorded at its capture, once a replay; ``replay_profile``
+    holds them against a profile)."""
+    return dict(launch.REPLAYED)
+
+
+def ran() -> dict:
+    """:func:`launches` + :func:`replayed`: what ran on the card."""
+    rep = replayed()
+    return {k: n + rep[k] for k, n in launches().items()}
+
+
+def device_mb() -> dict:
+    """MB of the card's memory that tensors hold and that the caching
+    allocator has reserved (graph pools included)."""
+    return {"allocated": torch.cuda.memory_allocated() / 2**20,
+            "reserved": torch.cuda.memory_reserved() / 2**20}
+
+
+def zero_launches() -> None:
+    """Every count set to 0: the wrappers' and the replayed graphs'."""
+    for m, a in COUNTERS.values():
+        setattr(m, a, 0)
+    launch.REPLAYED.update(dict.fromkeys(launch.REPLAYED, 0))
 
 
 def no_prep(cs, frs):
@@ -585,8 +636,7 @@ def run_path(label, cs, frs, carry0, with_i16, expect: dict, prep=no_prep,
     every launch count set to 0 just before and read just after; the
     counts must equal ``expect`` (kernel -> launches, the others 0)."""
     torch.cuda.synchronize()
-    for m, a in COUNTERS.values():
-        setattr(m, a, 0)
+    zero_launches()
     (outs, lens), carry = decode_chunks_scan(cs, prep(cs, frs), carry0,
                                              with_i16=with_i16, **kw)
     got = launches()
@@ -674,7 +724,9 @@ def path_rate(cs, frs, carry0, with_i16, plain: bool, reps: int,
               prep=no_prep, **kw):
     """(x_realtime, packets/s, ms per chunk) of ``prep`` then
     decode_chunks_scan (frames in, PCM out), median of ``reps`` timed
-    calls after one warm-up call."""
+    calls after one warm-up call; ``kw`` goes to decode_chunks_scan (a
+    caller's ``imdct``, or ``programs``: the calls through one program,
+    which the warm-up call captures)."""
     (_, lens), _ = decode_chunks_scan(cs, prep(cs, frs), carry0,
                                       with_i16=with_i16, plain=plain, **kw)
     torch.cuda.synchronize()
@@ -713,8 +765,10 @@ RANGE = "chip_smoke_range"  # the profiled calls' record_function name
 def device_profile(fn, reps: int = 1):
     """torch.profiler over ``reps`` calls of fn (after one call that warms
     the profiler up and is not recorded). Returns the host range of the
-    calls (start, end in us) and the device activities in it (start, end,
-    name): kernels, copies and fills, not annotations."""
+    calls (start, end in us), the device activities in it (start, end,
+    name): kernels, copies and fills, not annotations, and the names of the
+    host's CUDA runtime calls in it (``cudaLaunchKernel``,
+    ``cudaGraphLaunch``, ...)."""
     from torch.profiler import (ProfilerActivity, profile, record_function,
                                 schedule)
 
@@ -738,14 +792,29 @@ def device_profile(fn, reps: int = 1):
         if e.device_type == torch.autograd.DeviceType.CUDA
         and e.name != RANGE and not e.is_user_annotation
         and not e.name.startswith("ProfilerStep"))
-    return (t0, t1), dev
+    runtime = [e.name for e in events
+               if e.device_type == torch.autograd.DeviceType.CPU
+               and e.name.startswith("cuda") and t0 <= e.time_range.start <= t1]
+    return (t0, t1), dev, runtime
 
 
 def stage_device_ms(fn, reps: int = 5) -> float | None:
     """Device-busy milliseconds per call of fn (profiler), None when the
     profiler recorded no device activity."""
-    _, dev = device_profile(fn, reps)
+    _, dev, _ = device_profile(fn, reps)
     return sum(b - a for a, b, _ in dev) / reps / 1e3 if dev else None
+
+
+def busy_us(span, dev) -> tuple[float, dict]:
+    """The union of the device activities ``dev`` inside ``span`` (us) and
+    each op's summed time."""
+    busy, end = 0.0, span[0]
+    per_op: dict[str, float] = {}
+    for a, b, name in dev:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+        per_op[name] = per_op.get(name, 0.0) + max(0.0, b - a)
+    return busy, per_op
 
 
 def profile_path(label, cs, frs, carry0, with_i16, top: int = 8,
@@ -754,25 +823,234 @@ def profile_path(label, cs, frs, carry0, with_i16, top: int = 8,
     the call's wall time (union of device activity intervals) and device
     ms per chunk of the largest ops."""
     n_ = frs["mode"].shape[0]
-    (t0, t1), dev = device_profile(
+    (t0, t1), dev, _ = device_profile(
         lambda: decode_chunks_scan(cs, prep(cs, frs), carry0,
                                    with_i16=with_i16, **kw))
     if not dev:
         print(f"profile {label}: the profiler recorded no device activity "
               "(busy share not measured)")
         return
-    busy, end = 0.0, t0
-    per_op: dict[str, float] = {}
-    for a, b, name in dev:
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
-        per_op[name] = per_op.get(name, 0.0) + max(0.0, b - a)
+    busy, per_op = busy_us((t0, t1), dev)
     wall = t1 - t0
     print(f"profile {label}: one {n_}-chunk call {wall / 1e3:.3f} ms wall, "
           f"device busy {busy / 1e3:.3f} ms ({100 * busy / wall:.1f}%), idle "
           f"{100 * (1 - busy / wall):.1f}%, {len(dev)} device activities")
     for name, us in sorted(per_op.items(), key=lambda kv: -kv[1])[:top]:
         print(f"profile {label}: {us / 1e3 / n_:.4f} ms/chunk  {name[:110]}")
+
+
+#: the graphs phase: ABAB rounds, calls per wall timing, calls per host
+#: timing; BatchDecoder streams at compact "device" (bench.py --e2e's
+#: shape) and "host" (host compaction takes ~50 ms a stream)
+GRAPH_ROUNDS, GRAPH_WALL_CALLS, GRAPH_HOST_CALLS = 2, 5, 3
+GRAPH_BATCH = {"device": 256, "host": 32}
+#: each kernel form's kernel, by the name the profiler records
+KERNEL_NAMES = {"floor": "floor_spectra_kernel",
+                "floor_flat": "floor_spectra_kernel",
+                "floor_cd": "floor_cd_kernel", "overlap": "overlap_i16_kernel",
+                "overlap_split": "overlap_i16_kernel",
+                "overlap_audio": "overlap_i16_kernel",
+                "synth": "fused_floor_couple"}
+
+
+def same_bits(got, want, label: str) -> None:
+    """Raise unless the tensors (or arrays) of ``got`` equal ``want``'s bit
+    for bit."""
+    for i, (g, w) in enumerate(zip(got, want, strict=True)):
+        if isinstance(g, torch.Tensor):
+            ok = g.shape == w.shape and _same_bits(g, w)
+        else:
+            ok = g.shape == w.shape and np.array_equal(g, w)
+        if not ok:
+            raise AssertionError(f"{label}: output {i} differs between the "
+                                 "graph and the eager run")
+
+
+def replay_profile(label, prog, n_: int, card: str) -> dict:
+    """One replay of ``prog`` (its own inputs and carry: no copy) under the
+    profiler: the kernels in it by name, held to the launches the program
+    recorded at capture, and the host's CUDA runtime calls (one graph
+    launch, no kernel launch)."""
+    (t0, t1), dev, runtime = device_profile(
+        lambda: prog(prog.inputs, prog.carry))
+    if not dev:
+        print(f"graphs profile {label}: the profiler recorded no device "
+              f"activity (not measured) | card: {card}")
+        return {}
+    want: dict[str, int] = {}
+    for form, n in prog.launches.items():
+        want[KERNEL_NAMES[form]] = want.get(KERNEL_NAMES[form], 0) + n
+    seen = {k: sum(k in name for _, _, name in dev) for k in KERNEL_NAMES.values()}
+    calls = {k: runtime.count(k) for k in set(runtime)}
+    busy, _ = busy_us((t0, t1), dev)
+    if any(seen[k] != want.get(k, 0) for k in seen) or \
+            calls.get("cudaGraphLaunch", 0) != 1 or \
+            calls.get("cudaLaunchKernel", 0):
+        raise AssertionError(f"graphs profile {label}: kernels {seen}, "
+                             f"recorded {prog.launches}, runtime {calls}")
+    res = {"device_activities": len(dev), "kernels": {k: v for k, v in
+                                                      seen.items() if v},
+           "runtime_calls": calls, "wall_ms": (t1 - t0) / 1e3,
+           "device_busy_ms": busy / 1e3}
+    print(f"graphs profile {label}: one replay of {n_} chunks, "
+          f"{json.dumps(res)} | card: {card}")
+    return res
+
+
+def graph_ab(label, prog, frs, carry0, n_: int, card: str) -> dict:
+    """Graph against eager (``graphs.eager()``) on one program, alternated
+    ABAB in GRAPH_ROUNDS rounds: host ms per call (the call's return with
+    the stream idle before it: the enqueue), wall ms per chunk
+    (GRAPH_WALL_CALLS calls, the carry chained, one synchronize), and in
+    the first round the device's busy share of one profiled call."""
+    res = {"graph": {"host_ms": [], "wall_ms_per_chunk": []},
+           "eager": {"host_ms": [], "wall_ms_per_chunk": []}}
+    for r in range(GRAPH_ROUNDS):
+        for way in ("graph", "eager"):
+            ctx = graphs.eager if way == "eager" else contextlib.nullcontext
+            with ctx():
+                hosts = []
+                for _ in range(GRAPH_HOST_CALLS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    prog(frs, carry0)
+                    hosts.append(time.perf_counter() - t0)
+                torch.cuda.synchronize()
+                c = carry0
+                t0 = time.perf_counter()
+                for _ in range(GRAPH_WALL_CALLS):
+                    _, c = prog(frs, c)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                res[way]["host_ms"].append(statistics.median(hosts) * 1e3)
+                res[way]["wall_ms_per_chunk"].append(
+                    wall / (GRAPH_WALL_CALLS * n_) * 1e3)
+                if r == 0:
+                    (t0, t1), dev, _ = device_profile(
+                        lambda: prog(frs, carry0))
+                    busy, _ = busy_us((t0, t1), dev)
+                    res[way]["device_busy_share"] = (
+                        busy / (t1 - t0) if dev else None)
+    print(f"graphs timing {label} (ABAB, {GRAPH_ROUNDS} rounds; host: median "
+          f"of {GRAPH_HOST_CALLS} calls, stream idle before each; wall: "
+          f"{GRAPH_WALL_CALLS} calls, carry chained): {json.dumps(res)} | "
+          f"card: {card}")
+    return res
+
+
+def graphs_phase(dev, card: str, cs, fr0, carry0) -> dict:
+    """The chunk programs (``parallel.graphs``) on the card: the i16 main
+    path (N chunks) and the f32 path (N_NEW) each as one program, its
+    replay held bit for bit (outputs, out_len, carry) against the eager
+    decode_chunks_scan, its replay's launches against those it recorded
+    and against a profile of one replay, graph against eager timed ABAB
+    (``graph_ab``), the capture's seconds and the pool's MB; then
+    BatchDecoder.decode_streams_i16 at compact "device" (bench.py --e2e's
+    shape) and "host", graph against eager (``graphs.eager()``) bit for
+    bit, with the programs it made and captured, the pool's MB and the
+    stage split of one synchronized call each way."""
+    t_phase = time.perf_counter()
+    summary = {}
+    for label, n_, with_i16, want in (
+            ("i16 main", N, True, {"floor": N, "overlap": N}),
+            ("f32", N_NEW, False, {"floor_flat": N_NEW})):
+        frs = expand(fr0, n_)
+        programs = graphs.Programs()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode_chunks_scan(cs, frs, carry0, with_i16=with_i16,
+                           programs=programs)  # eager warm-up, capture
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        (prog,) = programs.programs.values()
+        zero_launches()
+        (g_out, g_len), g_carry = prog(frs, carry0)
+        got, rep = launches(), replayed()
+        torch.cuda.synchronize()
+        if any(got.values()) or rep != dict.fromkeys(rep, 0) | want or \
+                prog.launches != want:
+            raise AssertionError(f"graphs {label}: one replay counted "
+                                 f"{rep} (wrappers {got}), recorded "
+                                 f"{prog.launches}, expected {want}")
+        (e_out, e_len), e_carry = decode_chunks_scan(cs, frs, carry0,
+                                                     with_i16=with_i16)
+        same_bits((g_out, g_len) + g_carry, (e_out, e_len) + e_carry,
+                  f"graphs {label}")
+        with graphs.eager():  # the same program's body on its buffers
+            (p_out, p_len), p_carry = prog(frs, carry0)
+        same_bits((p_out, p_len) + p_carry, (e_out, e_len) + e_carry,
+                  f"graphs {label} (eager())")
+        del e_out
+        print(f"graphs {label}: one program of {n_} chunks (S={S} T={T} "
+              f"with_i16={with_i16}), replay == eager bit for bit (PCM, "
+              f"out_len, carry); launches of one replay {json.dumps(rep)} "
+              f"= recorded {json.dumps(prog.launches)}, none through the "
+              f"wrappers; first call "
+              f"(warm-up + capture) {first_s:.3f} s, capture "
+              f"{prog.capture_s:.3f} s, pool {prog.pool_mb:.1f} MB, outputs "
+              f"{sum(o.numel() * o.element_size() for o in prog.outputs) / 2**20:.1f}"
+              f" MB | card: {card}")
+        rec = {"capture_s": prog.capture_s, "pool_mb": prog.pool_mb,
+               "first_call_s": first_s}
+        if label == "i16 main":
+            rec["profile"] = replay_profile(label, prog, n_, card)
+        rec["ab"] = graph_ab(label, prog, frs, carry0, n_, card)
+        summary[label] = rec
+        del prog, programs, g_out, p_out
+        torch.cuda.empty_cache()
+
+    data, _, _ = gate_streams([bench.E2E_STREAM])[bench.E2E_STREAM]
+    headers, spans = bench.audio_spans(data, max(1, bench.E2E_SECONDS // 3))
+    raw = (headers.raw_ident, headers.raw_setup)
+    for compact, n_streams in GRAPH_BATCH.items():
+        dec = BatchDecoder(headers.ident, headers.setup, chunk=64, scan=8,
+                           raw_headers=raw, device=dev)
+        batch = [spans] * n_streams
+        t0 = time.perf_counter()
+        dec.decode_streams_i16(batch, compact=compact)  # warm-up, captures
+        first_s = time.perf_counter() - t0
+        rec = {"first_call_s": first_s}
+        outs = {}
+        for way in ("graph", "eager", "graph", "eager"):
+            ctx = graphs.eager if way == "eager" else contextlib.nullcontext
+            with ctx():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = dec.decode_streams_i16(batch, compact=compact)
+                rec.setdefault(f"{way}_wall_s", []).append(
+                    time.perf_counter() - t0)
+            outs.setdefault(way, out)
+        same_bits(outs["graph"], outs["eager"], f"graphs batch {compact}")
+        dec.stage_sync = True
+        for way in ("graph", "eager"):
+            ctx = graphs.eager if way == "eager" else contextlib.nullcontext
+            with ctx():
+                dec.decode_streams_i16(batch, compact=compact)
+            rec[f"{way}_stages_s"] = dec.last_stats["stages"]
+        progs = dec._slots.programs.programs
+        rec |= {"programs": dec._slots.programs.stats(),
+                # a TransferSlots program's key: cap third, slot and N last
+                "keys (slot, N, cap)": sorted(
+                    (k[-2], k[-1], k[2] or 0) for k in progs),
+                "pcm_buffers_mb": sum(b.numel() * b.element_size() for b in
+                                      dec._slots.pcm.values()) / 2**20,
+                "device_mb": device_mb()}
+        # the deepest captured program's launches against a profile
+        prog = max((p for p in progs.values() if p.graph is not None),
+                   key=lambda p: p.outputs[0].shape[0])
+        rec["profile"] = replay_profile(f"batch {compact}", prog,
+                                        prog.outputs[0].shape[0], card)
+        audio_s = sum(o.shape[0] for o in outs["graph"]) / \
+            headers.ident.sample_rate
+        print(f"graphs batch compact={compact}: BatchDecoder."
+              f"decode_streams_i16 on {n_streams} x {audio_s / n_streams:.1f}"
+              f" s ({bench.E2E_STREAM}, chunk 64, scan 8, native front-end), graph "
+              f"== eager bit for bit; {json.dumps(rec)} | card: {card}")
+        summary[f"batch {compact}"] = rec
+        del dec, outs, out
+        torch.cuda.empty_cache()
+    print(f"graphs phase ({time.perf_counter() - t_phase:.1f} s)")
+    return summary
 
 
 #: the streams of the reference's production permutations (bench.PERMUTATIONS,
@@ -1022,14 +1300,13 @@ def conformance(dev, card: str) -> dict:
     streams = gate_streams()
     frames_phase(streams, dev, card)
     torch.cuda.synchronize()
-    for m, a in COUNTERS.values():
-        setattr(m, a, 0)
+    zero_launches()
     t0 = time.perf_counter()
     direct = gate_pass(streams, dev, "read_all_i16")
     perms = permutation_pass(streams, dev, PERM_STREAMS)
     with split_transform():
         split = gate_pass(streams, dev, "read_all_i16 split")
-    got = launches()
+    got = ran()  # the permutations' BatchDecoder replays its programs
     if not all(got[k] for k in GATE_KERNELS):
         raise AssertionError(f"conformance: launches {got}, expected "
                              f"nonzero {GATE_KERNELS}")
@@ -1042,7 +1319,8 @@ def conformance(dev, card: str) -> dict:
             "samples_over_2lsb": sum(r[1] for r in res.values()),
             "samples_differ": sum(r[2] for r in res.values())}
     print(f"conformance on the native front-end "
-          f"({time.perf_counter() - t0:.1f} s, launches {got}): "
+          f"({time.perf_counter() - t0:.1f} s, launches {launches()}, by "
+          f"replayed graphs {replayed()}): "
           f"{json.dumps(summary)} | card: {card}")
     bad = {k: v for k, v in summary.items()
            if k != "split" and v["samples_over_2lsb"]}
@@ -1151,25 +1429,29 @@ def serve_bench(dev, argv) -> dict:
     goldens = [streams[n][1] for n in SERVE_FILES]
     timer = StageTimer()
 
+    programs = {}
+
     @contextlib.contextmanager
-    def timed():
+    def timed(sched):
         torch.cuda.synchronize()
-        for m, a in COUNTERS.values():
-            setattr(m, a, 0)
+        programs["before"] = serve_programs(sched)
+        zero_launches()
         with serve_stages(timer):
             yield
+        torch.cuda.synchronize()
+        programs["after"] = serve_programs(sched)
 
     line, outs, sched = bench.bench_serve(args, dev, timed)
-    got = launches()
+    got, rep = launches(), replayed()
     for i, out in enumerate(outs):
         g = goldens[i % len(datas)]
         if out.shape != g.shape or lsb_diff(out, g)[1]:
             raise AssertionError(f"serve scan {args.scan} stream {i}: shape "
                                  f"{out.shape} against {g.shape} or samples "
                                  "over the contract")
-    if not got["floor_flat"]:
+    if not got["floor_flat"] + rep["floor_flat"]:
         raise AssertionError(f"serve scan {args.scan}: K1 flat never "
-                             f"launched ({got})")
+                             f"launched ({got}, replayed {rep})")
     d = line["detail"]
     t = timer.totals
     stages = {"register": t["register"], "entropy": t["entropy"],
@@ -1179,51 +1461,94 @@ def serve_bench(dev, argv) -> dict:
     d |= {"scan": args.scan, "capacity": sched.capacity,
           "chunk": sched.chunk,
           "groups": sum(len(v) for v in sched.groups.values()),
-          "launches": got, "device_steps": timer.counts["entropy"],
-          "stages_s": stages}
+          "launches": got, "launches_replayed": rep,
+          "device_steps": timer.counts["entropy"], "stages_s": stages,
+          # the timed wave's chunk programs: its first uses (warm-up and
+          # capture, host seconds) apart from its replays
+          "programs": wave_programs(programs["before"], programs["after"]),
+          "device_mb": device_mb()}
     # the same wave again on the plain versions (not timed): bit for bit
     with plain_kernels():
         plain, _ = serve_wave(sched, datas, args.streams, "plain")
-    if launches() != got:
+    if (launches(), replayed()) != (got, rep):
         raise AssertionError(f"serve scan {args.scan}: the plain wave "
-                             f"launched kernels ({launches()} against {got})")
+                             f"launched kernels ({launches()}, replayed "
+                             f"{replayed()}, against {got}, {rep})")
     d["kernel_vs_plain_maxdiff"] = same_outputs(plain, outs,
                                                 f"serve scan {args.scan}")
     return line
 
 
+def serve_programs(sched) -> dict:
+    """``graphs.Programs.stats()`` summed over the scheduler's groups."""
+    total: dict = {}
+    for grps in sched.groups.values():
+        for grp in grps:
+            for k, v in grp._slots.programs.stats().items():
+                total[k] = total.get(k, 0) + (v or 0)
+    return total
+
+
+def wave_programs(before: dict, after: dict) -> dict:
+    """What a wave added to ``serve_programs``: programs made and captured,
+    the host seconds of their first uses (warm-up and capture) and of the
+    replays, and the programs in all after it."""
+    d = {k: after.get(k, 0) - before.get(k, 0)
+         for k in ("programs", "captured", "first_use_s", "replays",
+                   "replay_s")}
+    return d | {"programs_total": after.get("programs", 0),
+                "pool_mb_total": after.get("pool_mb", 0)}
+
+
 def serve_soak(streams: dict, dev, card: str) -> list:
     """tools/soak_serve.py's shape: SOAK_WAVES waves of SOAK_S streams
     (register -> step to the end -> poll -> remove) through one scheduler
-    after a warm-up wave, the host RSS after each; fails if the median RSS
-    of the last third of the waves exceeds the middle third's by more than
-    SOAK_RSS_MB."""
+    after a warm-up wave; after each wave the host RSS, the card's memory
+    (``device_mb``) and what the wave added to the groups' chunk programs
+    (``wave_programs``). Fails if the median RSS of the last third of the
+    waves exceeds the middle third's by more than SOAK_RSS_MB, or if the
+    card's allocated or reserved memory in the last third exceeds its
+    largest in the middle third."""
     datas = [streams[n][0] for n in SERVE_FILES]
     sched = StreamingScheduler(capacity=max(8, SOAK_S // len(datas) + 1),
                                chunk=64, scan=1, device=dev)
     serve_wave(sched, datas, SOAK_S, "warm")
-    rss, t0 = [], time.perf_counter()
+    rss, mem, progs, t0 = [], [], [], time.perf_counter()
     first = None
     for wave in range(SOAK_WAVES):
+        before = serve_programs(sched)
         outs, _ = serve_wave(sched, datas, SOAK_S, wave)
         if first is None:
             first = outs
         elif not all(np.array_equal(a, b) for a, b in zip(outs, first)):
             raise AssertionError(f"serve soak: wave {wave} decoded "
                                  "differently from wave 0")
+        torch.cuda.synchronize()
         rss.append(rss_mb())
+        mem.append(device_mb())
+        progs.append(wave_programs(before, serve_programs(sched)))
     k = SOAK_WAVES // 3
     mid = statistics.median(rss[k: 2 * k])
     last = statistics.median(rss[2 * k:])
+    grew = {m: max(r[m] for r in mem[2 * k:]) - max(r[m] for r in
+                                                     mem[k: 2 * k])
+            for m in ("allocated", "reserved")}
     print(f"serve soak: {SOAK_WAVES} waves x {SOAK_S} streams in "
           f"{time.perf_counter() - t0:.2f} s, RSS first wave {rss[0]:.1f} MB, "
           f"last {rss[-1]:.1f} MB, median middle third {mid:.1f} MB, last "
           f"third {last:.1f} MB (bound +{SOAK_RSS_MB:.0f} MB); groups "
           f"{sum(len(v) for v in sched.groups.values())}, RSS per wave "
-          f"{['%.1f' % r for r in rss]} | card: {card}")
+          f"{['%.1f' % r for r in rss]}; card MB allocated per wave "
+          f"{['%.1f' % r['allocated'] for r in mem]}, reserved "
+          f"{['%.1f' % r['reserved'] for r in mem]} (last third over the "
+          f"middle's largest: {json.dumps(grew)}); programs per wave "
+          f"{json.dumps(progs)} | card: {card}")
     if last - mid > SOAK_RSS_MB:
         raise AssertionError(f"serve soak: RSS grew {last - mid:.1f} MB "
                              "from the middle third to the last")
+    if any(v > 0 for v in grew.values()):
+        raise AssertionError(f"serve soak: the card's memory grew after the "
+                             f"middle third: {grew}")
     return rss
 
 
@@ -1239,8 +1564,7 @@ def serve_phase(dev, card: str) -> None:
     soak."""
     streams = gate_streams()
     torch.cuda.synchronize()
-    for m, a in COUNTERS.values():
-        setattr(m, a, 0)
+    zero_launches()
     t0 = time.perf_counter()
     held: dict = {}
     with held_kernels(held):
@@ -1290,6 +1614,10 @@ def serve_phase(dev, card: str) -> None:
     if bad:
         raise AssertionError(f"serve gate: samples over +/-{GATE_LSB} LSB "
                              f"in {bad}")
+    print(f"serve gate p12 scheduler's programs (run eagerly under "
+          f"held_kernels and plain_kernels, so none captured): "
+          f"{json.dumps(serve_programs(sched))}, card MB "
+          f"{json.dumps(device_mb())} | card: {card}")
     print("serve: " + json.dumps(serve_bench(dev, SERVE_ARGV))
           + f" | card: {card}")
     serve_soak(streams, dev, card)
@@ -1353,13 +1681,12 @@ def mesh_reference(dev, streams: dict) -> dict:
                            device=dev, raw_headers=(headers.raw_ident,
                                                     headers.raw_setup))
         torch.cuda.synchronize()
-        for m, a in COUNTERS.values():
-            setattr(m, a, 0)
+        zero_launches()
         outs = dec.decode_streams_i16([pcks, pcks], transport="i16")
         if not np.array_equal(outs[0], outs[1]):
             raise AssertionError(f"mesh reference {name}: the two copies "
                                  "differ")
-        perm[name] = (outs, launches(), dec.cs.n1)
+        perm[name] = (outs, ran(), dec.cs.n1)  # graphs on: replays too
     return {"chunks": [[x.cpu().numpy() for x in out] for out in res],
             "carry": [c.cpu().numpy() for c in carry], "ms": ms,
             "bound": 2.0 * bound, "perm": perm}
@@ -1857,8 +2184,7 @@ def backends_phase(dev, card: str) -> tuple[dict, dict]:
     routes = {"one-call": [], "packets": []}
     pair_max = {}
     torch.cuda.synchronize()
-    for m, a in COUNTERS.values():
-        setattr(m, a, 0)
+    zero_launches()
     held: dict = {}
     torch_s = 0.0
     for name, (data, golden, kind) in streams.items():
@@ -1945,21 +2271,29 @@ BENCH_SURFACES = (("synthesis", []), ("check", ["--check"]),
 BENCH_CLI_TIMEOUT = 300.0  # seconds for the bench's CLI run in a subprocess
 
 
-def bench_launch_check(label: str, line: dict, got: dict,
+def bench_launch_check(label: str, line: dict, got: dict, rep: dict,
                        held: dict) -> None:
-    """Raise unless a bench surface launched what its path launches: the
-    synthesis K1 channel-major and K2 X scan x (iters + 1) times and
-    nothing else; the check within the contract, every launch held bit for
-    bit against its plain version; e2e (device compaction) and serve K1
-    flat; the host-only front-end nothing."""
+    """Raise unless a bench surface launched what its path launches
+    (``got`` through the wrappers, ``rep`` by replayed graphs): the
+    synthesis K1 channel-major and K2 X scan times in the warm-up call
+    through the wrappers, which also captures the call's program, and scan
+    x iters times in its replays, nothing else; the check within the
+    contract, every launch held bit for bit against its plain version (so
+    none replayed); e2e (device compaction) and serve K1 flat; the
+    host-only front-end nothing."""
     d = line["detail"]
     if label == "synthesis":
-        n = d["scan"] * (d["iters"] + 1)
-        want = dict.fromkeys(got, 0) | {"floor": n, "overlap": n}
-        if got != want:
-            raise AssertionError(f"bench {label}: launches {got}, expected "
-                                 f"{want}")
+        n = d["scan"]
+        zero = dict.fromkeys(got, 0)
+        want = (zero | {"floor": n, "overlap": n},
+                zero | {"floor": n * d["iters"], "overlap": n * d["iters"]})
+        if (got, rep) != want:
+            raise AssertionError(f"bench {label}: launches {got}, replayed "
+                                 f"{rep}, expected {want}")
     elif label == "check":
+        if any(rep.values()):
+            raise AssertionError(f"bench check: a graph replayed {rep} "
+                                 "where every launch is held")
         if line["value"] > GATE_LSB or d["samples_over_2lsb"] or any(
                 r["samples_over_2lsb"]
                 for r in d["production_permutations"].values()):
@@ -1974,12 +2308,12 @@ def bench_launch_check(label: str, line: dict, got: dict,
             raise AssertionError(f"bench check: held launches differ from "
                                  f"the plain versions: {held}")
     elif label in ("e2e", "serve"):
-        if not got["floor_flat"]:
+        if not got["floor_flat"] + rep["floor_flat"]:
             raise AssertionError(f"bench {label}: K1 flat never launched "
-                                 f"({got})")
-    elif any(got.values()):
+                                 f"({got}, replayed {rep})")
+    elif any(got.values()) or any(rep.values()):
         raise AssertionError(f"bench {label}: the host-only surface "
-                             f"launched {got}")
+                             f"launched {got}, replayed {rep}")
 
 
 @contextlib.contextmanager
@@ -2055,7 +2389,7 @@ def synthesis_methods(line: dict, cs, fr0, carry0, card: str) -> None:
           f"card: {card}")
 
 
-def bench_phase(dev, card: str, cs, fr0, carry0) -> tuple[dict, dict]:
+def bench_phase(dev, card: str, cs, fr0, carry0) -> tuple[dict, dict, dict]:
     """The five bench surfaces in-process at the reference's defaults, the
     launch counts set to 0 before each and read after
     (``bench_launch_check``): the check's launches each held against
@@ -2069,27 +2403,36 @@ def bench_phase(dev, card: str, cs, fr0, carry0) -> tuple[dict, dict]:
     kernel form."""
     t0 = time.perf_counter()
     total = dict.fromkeys(COUNTERS, 0)
+    total_rep = dict.fromkeys(COUNTERS, 0)
     held: dict = {}
     for label, argv in BENCH_SURFACES:
         torch.cuda.synchronize()
-        for m, a in COUNTERS.values():
-            setattr(m, a, 0)
+        zero_launches()
         ts = time.perf_counter()
+        programs = graphs.Programs()  # the headline's
         if label == "serve":
             line = serve_bench(dev, argv)
         else:
             with held_kernels(held) if label == "check" else \
                     contextlib.nullcontext():
-                line = bench.main(argv)
+                line = bench.main(argv, programs=programs)
         torch.cuda.synchronize()
-        got = launches()
+        got, rep = launches(), replayed()
         print(f"bench {label} (python -m lewton_tpu_torch.bench "
               f"{' '.join(argv)}; {time.perf_counter() - ts:.1f} s, launches "
-              f"{json.dumps({k: v for k, v in got.items() if v})}): "
+              f"{json.dumps({k: v for k, v in got.items() if v})}, replayed "
+              f"{json.dumps({k: v for k, v in rep.items() if v})}): "
               f"{json.dumps(line)} | card: {card}")
-        bench_launch_check(label, line, got, held)
+        bench_launch_check(label, line, got, rep, held)
         total = {k: total[k] + got[k] for k in total}
+        total_rep = {k: total_rep[k] + rep[k] for k in total_rep}
         if label == "synthesis":
+            # the headline's own program: its recorded launches against a
+            # profile of one replay
+            (prog,) = programs.programs.values()
+            replay_profile("bench headline", prog, line["detail"]["scan"],
+                           card)
+            del prog, programs
             synthesis_methods(line, cs, fr0, carry0, card)
     ts = time.perf_counter()
     proc = subprocess.run(
@@ -2106,10 +2449,11 @@ def bench_phase(dev, card: str, cs, fr0, carry0) -> tuple[dict, dict]:
           f"in a subprocess, {time.perf_counter() - ts:.1f} s): "
           f"{json.dumps(line)} | card: {card}")
     print(f"bench phase ({time.perf_counter() - t0:.1f} s): launches "
-          f"{json.dumps(total)}; the check's held (calls, max_abs_err): "
+          f"{json.dumps(total)}, replayed {json.dumps(total_rep)}; the "
+          f"check's held (calls, max_abs_err): "
           + ", ".join(f"{k} {c['calls']}, {c['max_abs_err']}"
                       for k, c in held.items()))
-    return total, {k: c["max_abs_err"] for k, c in held.items()}
+    return total, total_rep, {k: c["max_abs_err"] for k, c in held.items()}
 
 
 def main() -> None:
@@ -2340,7 +2684,9 @@ def main() -> None:
     }
     stages = {k: stage_device_ms(fn) for k, fn in stages.items()}
     split_stages = {k: stage_device_ms(fn) for k, fn in split_stages.items()}
-    fast = path_rate(cs, frs, carry0, True, False, 5)
+    # the main path's N chunks as one program, as the bench's headline
+    fast = path_rate(cs, frs, carry0, True, False, 5,
+                     programs=graphs.Programs())
     host = host_enqueue_ms(cs, expand(fr0, 1), carry0)
     plain = path_rate(cs, frs, carry0, True, True, 3)
     print("timing (ms per call, headline shapes): " + ", ".join(
@@ -2353,7 +2699,8 @@ def main() -> None:
             print(f"{label} (device ms per chunk, torch.profiler): "
                   + ", ".join(f"{k} {v:.4f}" for k, v in st.items())
                   + f", sum {sum(st.values()):.4f} | card: {card}")
-    print(f"main path chunk: {fast[2]:.4f} ms, host enqueue of one chunk "
+    print(f"main path chunk: {fast[2]:.4f} ms (N={N} chunks as one "
+          f"program, its graph replayed), eager host enqueue of one chunk "
           f"{host:.4f} ms (median of 5, stream idle before each) | card: "
           f"{card}")
 
@@ -2377,6 +2724,9 @@ def main() -> None:
     for label, (cs_p, frs_p, with_i16) in new_paths.items():
         profile_path(label, cs_p, frs_p, carry0, with_i16, top=5)
 
+    # ---- 6b. the chunk programs: graph against eager ----
+    graphs_phase(dev, card, cs, fr0, carry0)
+
     # ---- 7. the conformance gate on the committed streams ----
     conformance(dev, card)
 
@@ -2390,7 +2740,8 @@ def main() -> None:
     backends_launches, backends_err = backends_phase(dev, card)
 
     # ---- 11. the bench surfaces: python -m lewton_tpu_torch.bench ----
-    bench_launches, bench_err = bench_phase(dev, card, cs, fr0, carry0)
+    bench_launches, bench_replayed, bench_err = bench_phase(dev, card, cs,
+                                                            fr0, carry0)
 
     kernels = []
     for key, kname, src, replaces, n_launch in (
@@ -2415,10 +2766,14 @@ def main() -> None:
             # launches: the path's own drive; launches_mesh: the mesh
             # phase's, summed over its ranks; launches_backends: the
             # backends phase's torch backend; launches_bench: the bench
-            # surfaces', summed
+            # surfaces', summed, through the wrappers, and
+            # launches_bench_replayed by their replayed graphs (the
+            # launches each recorded at capture, held to a profile of one
+            # replay of the headline's program)
             "launches": n_launch, "launches_mesh": mesh_launches[key],
             "launches_backends": backends_launches[key],
             "launches_bench": bench_launches[key],
+            "launches_bench_replayed": bench_replayed[key],
             "max_abs_err": max(err[key], mesh_err.get(key, 0.0),
                                backends_err.get(key, 0.0),
                                bench_err.get(key, 0.0)),

@@ -15,8 +15,10 @@ unit and detail keys (``vs_baseline`` is value / 10,000, the north star of
   setup, ``synthetic_headers(2, 8, 11)`` with frames from seed 3, S streams
   of T packets; ``--scan N`` chunks per call through
   :func:`decode_chunks_scan` (0: one chunk through
-  :func:`decode_chunk_batch`). One warm-up call, then ``--iters`` calls
-  timed to a device synchronize.
+  :func:`decode_chunk_batch`), each as one program (``parallel.graphs``:
+  a CUDA graph replayed per call, as the reference's bench calls its
+  jitted function). One warm-up call (which captures it), then
+  ``--iters`` calls timed to a device synchronize.
 - ``--check`` -> ``conformance_max_lsb_diff``: every committed stream of
   ``tests/data/torch_gate/`` through ``OggStreamReader.read_all_i16()``
   against its libvorbis golden, then the reference's production
@@ -58,7 +60,7 @@ from .models.decoder import StreamDecoder, compile_setup
 from .ogg import PacketReader
 from .ops import imdct
 from .ops.windowing import init_window_carry
-from .parallel import launch
+from .parallel import graphs, launch
 from .parallel.batch import (BatchDecoder, decode_chunk_batch,
                              decode_chunks_scan)
 from .parallel.pack12 import pack12_supported
@@ -378,26 +380,33 @@ def bench_check(args, dev, names=None) -> dict:
 # the timed surfaces
 # ---------------------------------------------------------------------------
 
-def bench_synthesis(args, dev) -> dict:
+def bench_synthesis(args, dev, programs=None) -> dict:
     """The device half on the flagship setup: --iters calls after one
-    warm-up, timed to a device synchronize."""
+    warm-up, timed to a device synchronize. ``programs``: the
+    ``graphs.Programs`` the calls' program is made in (default: a new
+    one)."""
     S, T = args.streams, args.chunk
     ident, setup = synthetic_headers(channels=2, bs0_exp=8, bs1_exp=11)
     cs = compile_setup(ident, setup, device=dev)
     fr = {k: torch.from_numpy(v).to(dev)
           for k, v in synthetic_frames(cs, T=T, S=S, seed=3).items()}
     carry = init_window_carry(cs.channels, cs.n1 // 2, S, dev)
+    # the call's program: the carry it returns is its owner's static one, so
+    # passing it back chains the calls with no copy
+    programs = graphs.Programs() if programs is None else programs
     if args.scan:
         # N chunks per call: the same frames stacked (steady-state
         # synthesis; production stacks N distinct chunks the same way)
         frs = {k: v.expand(args.scan, *v.shape) for k, v in fr.items()}
 
         def call(c):
-            (outs, lens), c = decode_chunks_scan(cs, frs, c, with_i16=True)
+            (outs, lens), c = decode_chunks_scan(cs, frs, c, with_i16=True,
+                                                 programs=programs)
             return outs, lens, c
     else:
         def call(c):
-            (outs, lens), c = decode_chunk_batch(cs, fr, c, with_i16=True)
+            (outs, lens), c = decode_chunk_batch(cs, fr, c, with_i16=True,
+                                                 programs=programs)
             return outs, lens, c
     _, lens, _ = call(carry)  # warm-up
     samples_per_call = int(lens.sum())  # per-channel samples
@@ -457,8 +466,8 @@ def bench_e2e(args, dev) -> dict:
 def bench_serve(args, dev, timed=contextlib.nullcontext):
     """S streams over SERVE_FILES through one scheduler, after one warm-up
     stream per setup, registration to removal, the timed part inside
-    ``timed()``. Returns the JSON line, the PCM of each timed stream and
-    the scheduler."""
+    ``timed(sched)`` (``sched``: the scheduler). Returns the JSON line, the
+    PCM of each timed stream and the scheduler."""
     streams = gate_streams(SERVE_FILES)
     datas = [streams[n][0] for n in SERVE_FILES]
     S = args.streams
@@ -474,7 +483,7 @@ def bench_serve(args, dev, timed=contextlib.nullcontext):
     audio_s = 0.0
     outs = []
     sync(dev)
-    with timed():
+    with timed(sched):
         t0 = time.perf_counter()
         for i in range(S):
             sched.add_stream(i, datas[i % len(datas)])
@@ -584,10 +593,13 @@ def parse_args(argv=None):
     return args
 
 
-def main(argv=None, frontend_seconds: float = 3.0, check_names=None) -> dict:
+def main(argv=None, frontend_seconds: float = 3.0, check_names=None,
+         programs=None) -> dict:
     """Run the surface ``argv`` selects, print its JSON line last and
     return it. ``frontend_seconds``: --frontend's seconds at each thread
-    point; ``check_names``: --check's gate streams (default all)."""
+    point; ``check_names``: --check's gate streams (default all);
+    ``programs``: the headline's ``graphs.Programs`` (default: a new
+    one)."""
     args = parse_args(argv)
     dev = resolve_device(args.cpu)
     split = imdct.USE_DCT4_SPLIT
@@ -602,7 +614,7 @@ def main(argv=None, frontend_seconds: float = 3.0, check_names=None) -> dict:
         elif args.serve:
             result = bench_serve(args, dev)[0]
         else:
-            result = bench_synthesis(args, dev)
+            result = bench_synthesis(args, dev, programs)
     finally:
         imdct.USE_DCT4_SPLIT = split
     print(json.dumps(result), flush=True)

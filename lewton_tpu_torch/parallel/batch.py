@@ -3,9 +3,18 @@
 
 Streams are independent and decoded in lockstep by one call per chunk
 (the stream axis is explicit in the core, no ``vmap``). Packet time is
-sequential through the window carry, so N chunks run as a Python loop that
-chains the carry; the reference's ``lax.scan`` only amortized dispatch
-latency, and PyTorch dispatches eagerly.
+sequential through the window carry, so N chunks run in order, the carry
+chained from each to the next. The reference makes each of its chunk
+programs (``decode_chunk_batch``, ``decode_chunks_scan`` and the packed
+forms) one ``jax.jit``-compiled device dispatch, a ``lax.scan`` over the N
+chunks: the host pays one dispatch for N chunks. The port's counterpart is
+a captured CUDA graph replayed per call (``graphs.ChunkProgram``): pass
+``programs=`` (a ``graphs.Programs``, the owner's cache) to
+:func:`decode_chunks_scan`, :func:`decode_chunk_batch` or the packed
+functions. Without it they run eagerly and return fresh outputs; with it,
+the outputs are the program's own buffers, valid until its next run, and
+the carry is the owner's, valid until the next run of any of its programs
+with that carry layout (``graphs``' lifetime).
 
 The transport is the reference's: the nine small frame arrays travel as
 three flat buffers (one per dtype) beside the residue, which may be 12-bit
@@ -15,7 +24,8 @@ entry: each stream's packets in, PCM per stream out, its host front-end
 pipelined against the device through pinned double buffers, non-blocking
 copies and a side stream for the device-to-host copies
 (:class:`TransferSlots`, which ``serve.StreamingScheduler``'s groups use
-too).
+too). Each group of chunks goes through a program of the transfer slots:
+the host-to-device copies land in its static inputs, and its graph replays.
 
 Sharding follows the reference's (dp, tp) mesh in PyTorch's idiom: one
 process per rank under ``torch.distributed`` and a ``DeviceMesh`` with dims
@@ -26,7 +36,8 @@ contraction axis, and an all-reduce over the tp group rebuilds each block
 (:func:`_imdct_tp`). :func:`decode_chunk_sharded` returns the global
 outputs on every rank (an all-gather over dp); ``BatchDecoder(mesh=)``
 entropy-decodes only the rank's block and gathers the host PCM at the end.
-``parallel/launch.py`` starts the ranks.
+``parallel/launch.py`` starts the ranks. The mesh's programs run eagerly:
+its collectives cannot be captured.
 """
 
 from __future__ import annotations
@@ -40,23 +51,22 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..models import decoder as _decoder
 from ..models.decoder import (CompiledSetup, StreamDecoder,
                               decode_frames_core, frames_to_device,
                               predict_out_lens)
+from ..ops import imdct as _imdct_mod
 from ..ops.imdct import imdct_batch
 from ..ops.windowing import init_window_carry
+from . import graphs
 from .pack12 import p12_auto, pack12_np, pack12_supported, unpack12
 
 __all__ = ["make_mesh", "mesh_device", "decode_chunk_batch",
-           "decode_chunks_scan", "decode_chunk_sharded", "pack_frame_buffers",
-           "unpack_frame_buffers", "decode_chunk_batch_packed",
-           "decode_chunk_batch_packed_i16", "decode_chunks_scan_packed",
-           "decode_chunks_scan_packed_i16", "TransferSlots", "BatchDecoder"]
-
-
-#: one chunk for S streams (``with_i16``, ``compact_cap`` as the
-#: reference's), under the reference's name
-decode_chunk_batch = decode_frames_core
+           "decode_chunks_scan", "scan_program", "decode_chunk_sharded",
+           "pack_frame_buffers", "unpack_frame_buffers", "packed_program",
+           "decode_chunk_batch_packed", "decode_chunk_batch_packed_i16",
+           "decode_chunks_scan_packed", "decode_chunks_scan_packed_i16",
+           "TransferSlots", "BatchDecoder"]
 
 
 def _chunk(frs: dict, i: int) -> dict:
@@ -65,29 +75,123 @@ def _chunk(frs: dict, i: int) -> dict:
             for k, v in frs.items()}
 
 
+def _scan_outputs(cs: CompiledSetup, N: int, S: int, T: int, with_i16: bool,
+                  compact_cap, device, pcm=None) -> tuple:
+    """The outputs of N chunks: (out, lens i32 [N, S, T]), out i16
+    [N, S, T, C*3n1/4] with ``with_i16``, else f32 [N, S, T, C, 3n1/4]; with
+    ``compact_cap``, (pcm i16 [N, S, cap, C], totals i32 [N, S], lens).
+    ``pcm``: a buffer of the first output's dtype whose leading elements
+    hold it (a view), in place of a fresh one."""
+    def first(shape, dtype):
+        if pcm is None:
+            return torch.empty(shape, dtype=dtype, device=device)
+        return pcm.view(-1)[: int(np.prod(shape))].view(shape)
+    lens = torch.empty((N, S, T), dtype=torch.int32, device=device)
+    if compact_cap is not None:
+        return (first((N, S, compact_cap, cs.channels), torch.int16),
+                torch.empty((N, S), dtype=torch.int32, device=device), lens)
+    outw = 3 * cs.n1 // 4
+    out = (first((N, S, T, cs.channels * outw), torch.int16) if with_i16
+           else first((N, S, T, cs.channels, outw), torch.float32))
+    return out, lens
+
+
+def _scan_into(cs: CompiledSetup, frs: dict, carry, outs: tuple,
+               with_i16: bool = False, compact_cap=None, plain: bool = False,
+               imdct=imdct_batch):
+    """Decode the N chunks of ``frs`` (leaves [N, S, T, ...]) in order,
+    chunk i into ``outs``' slices i (:func:`_scan_outputs`' layout), the
+    carry chained; returns the final carry."""
+    for i in range(frs["mode"].shape[0]):
+        fr = _chunk(frs, i)
+        if compact_cap is None:
+            (_, out_len), carry = decode_frames_core(
+                cs, fr, carry, with_i16=with_i16, plain=plain, out=outs[0][i],
+                imdct=imdct)
+        else:
+            (outs[0][i], outs[1][i], out_len), carry = decode_frames_core(
+                cs, fr, carry, compact_cap=compact_cap, plain=plain,
+                imdct=imdct)
+        outs[-1][i] = out_len
+    return carry
+
+
+def _routing() -> tuple:
+    """The routing flags a chunk reads while it is enqueued, which a
+    captured graph would keep: part of every program's key."""
+    return (_imdct_mod.USE_DCT4_SPLIT, _decoder.USE_FUSED_SYNTH_KERNEL)
+
+
+def scan_program(programs: graphs.Programs, cs: CompiledSetup, frs: dict,
+                 carry, with_i16: bool = False, compact_cap=None,
+                 plain: bool = False, imdct=imdct_batch):
+    """The program of ``programs`` that decodes N chunks of frames with
+    ``frs``' layout (leaves [N, S, T, ...]) from ``carry``'s layout, made
+    at its first use: the counterpart of the reference's jitted
+    ``decode_chunks_scan``, keyed as ``graphs`` says. Call it as
+    ``prog(frs, carry)`` -> ((out, lens) or (pcm, totals, lens), carry)."""
+    key = ("scan", id(cs), bool(with_i16), compact_cap, plain, imdct,
+           graphs.signature(frs), _routing())
+
+    def make():
+        N, S, T = frs["mode"].shape
+        outs = _scan_outputs(cs, N, S, T, with_i16, compact_cap, cs.device)
+
+        def body(inputs, c, outputs):
+            return _scan_into(cs, inputs, c, outputs, with_i16, compact_cap,
+                              plain, imdct)
+        return graphs.ChunkProgram(programs, body, frs, carry, outs, key)
+    return programs.get(key, make)
+
+
+def decode_chunk_batch(cs: CompiledSetup, fr: dict, carry,
+                       with_i16: bool = False, compact_cap=None,
+                       programs: graphs.Programs | None = None, **kw):
+    """One chunk for S streams (the reference's jitted
+    ``decode_chunk_batch``): :func:`decode_frames_core`'s results, ``kw``
+    its ``with_taps``, ``plain``, ``out`` and ``imdct``. With ``programs``
+    the chunk runs as a one-chunk program of that cache (neither
+    ``with_taps`` nor ``out`` taken): its outputs are the program's own
+    buffers, valid until its next run, and its carry the owner's, valid
+    until the next run of any of its programs with that carry layout."""
+    if programs is None:
+        return decode_frames_core(cs, fr, carry, with_i16, compact_cap, **kw)
+    if kw.get("with_taps") or kw.get("out") is not None:
+        raise ValueError("a program takes neither with_taps nor out")
+    frs = {k: tuple(b[None] for b in v) if isinstance(v, tuple) else v[None]
+           for k, v in fr.items()}
+    outs, carry = scan_program(programs, cs, frs, carry, with_i16,
+                               compact_cap, **kw)(frs, carry)
+    return tuple(o[0] for o in outs), carry
+
+
 def decode_chunks_scan(cs: CompiledSetup, frs: dict, carry,
                        with_i16: bool = False, plain: bool = False,
-                       imdct=imdct_batch):
-    """N chunks in order: frs leaves [N, S, T, ...]. Returns ((out, out_len
-    i32 [N, S, T]), final carry), out i16 [N, S, T, C*3n1/4] with
-    ``with_i16``, else f32 [N, S, T, C, 3n1/4]. Each chunk's samples are
-    written into its slice of ``out``. ``imdct``: passed to every chunk's
-    :func:`decode_frames_core` (a caller's transform, as the reference's
-    ``_batch_core`` passes it)."""
+                       imdct=imdct_batch,
+                       programs: graphs.Programs | None = None):
+    """Decode N chunks in one dispatch, the reference's contract: frs
+    leaves [N, S, T, ...], the window carry chained chunk to chunk. Returns
+    ((out, out_len i32 [N, S, T]), final carry), out i16 [N, S, T,
+    C*3n1/4] with ``with_i16``, else f32 [N, S, T, C, 3n1/4]; each chunk's
+    samples are written into its slice of ``out``. ``imdct``: passed to
+    every chunk's :func:`decode_frames_core` (a caller's transform, as the
+    reference's ``_batch_core`` passes it).
+
+    With ``programs`` (a ``graphs.Programs``) the N chunks run as one
+    program of that cache (:func:`scan_program`): captured as a CUDA graph
+    at the first call on a card and replayed, one host dispatch for all N
+    chunks, as the reference's ``jax.jit`` over ``lax.scan``. Its outputs
+    are then the program's own buffers, valid until its next run, and its
+    carry the owner's, valid until the next run of any of its programs
+    with that carry layout. Without it the chunks are enqueued one op at a
+    time into fresh outputs."""
+    if programs is not None:
+        return scan_program(programs, cs, frs, carry, with_i16, plain=plain,
+                            imdct=imdct)(frs, carry)
     N, S, T = frs["mode"].shape
-    dev = frs["mode"].device
-    outw = 3 * cs.n1 // 4
-    out = (torch.empty((N, S, T, cs.channels * outw), dtype=torch.int16,
-                       device=dev) if with_i16 else
-           torch.empty((N, S, T, cs.channels, outw), dtype=torch.float32,
-                       device=dev))
-    lens = torch.empty((N, S, T), dtype=torch.int32, device=dev)
-    for i in range(N):
-        (_, out_len), carry = decode_frames_core(
-            cs, _chunk(frs, i), carry, with_i16=with_i16, plain=plain,
-            out=out[i], imdct=imdct)
-        lens[i] = out_len
-    return (out, lens), carry
+    outs = _scan_outputs(cs, N, S, T, with_i16, None, frs["mode"].device)
+    return outs, _scan_into(cs, frs, carry, outs, with_i16, plain=plain,
+                            imdct=imdct)
 
 
 # ---------------------------------------------------------------------------
@@ -304,45 +408,111 @@ def unpack_frame_buffers(residue, bbuf, ibuf, fbuf, shapes) -> dict:
     return fr
 
 
+def _packed_into(cs: CompiledSetup, inputs: tuple, shapes, carry, outs,
+                 compact_cap=None, imdct=imdct_batch):
+    """Decode the packed buffers ``inputs`` (residue, bbuf, ibuf, fbuf),
+    re-viewed as frames through ``shapes`` (leaves [N, S, T, ...], or one
+    chunk's [S, T, ...], a chunk axis of 1), into ``outs``
+    (:func:`_scan_outputs`' layout): device-compacted at ``compact_cap``
+    samples a stream, else the i16 kernel path's padded chunk. Returns the
+    final carry."""
+    fr = unpack_frame_buffers(*inputs, shapes)
+    if fr["mode"].dim() == 2:
+        fr = {k: v[None] for k, v in fr.items()}
+    return _scan_into(cs, fr, carry, outs, with_i16=compact_cap is None,
+                      compact_cap=compact_cap, imdct=imdct)
+
+
+def _packed_outputs(cs: CompiledSetup, shapes, compact_cap, device) -> tuple:
+    """Fresh outputs of the packed frames of ``shapes`` (a chunk axis of 1
+    for one chunk's), :func:`_scan_outputs`' layout."""
+    mode = dict(shapes)["mode"]
+    N, (S, T) = (mode[0] if len(mode) == 3 else 1), mode[-2:]
+    return _scan_outputs(cs, N, S, T, compact_cap is None, compact_cap,
+                         device)
+
+
+def packed_program(programs: graphs.Programs, cs: CompiledSetup,
+                   inputs: tuple, shapes, carry, compact_cap=None,
+                   imdct=imdct_batch, outputs=None, key: tuple = ()):
+    """The program of ``programs`` that runs :func:`_packed_into` on packed
+    buffers of ``inputs``' layout (tensors or arrays) from ``carry``'s
+    layout, made at its first use: the counterpart of the reference's
+    jitted packed programs. ``outputs``: a function that returns the
+    buffers it writes (default: its own, :func:`_scan_outputs`); ``key``:
+    the caller's part of its key (``TransferSlots``: the slot and N). Call
+    it as ``prog(inputs, carry)`` -> ((out, lens) or (pcm, totals, lens),
+    carry), the outputs with a chunk axis."""
+    inputs = tuple(torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+                   for a in inputs)
+    full = ("packed", id(cs), compact_cap, imdct, shapes,
+            graphs.signature(inputs), _routing()) + tuple(key)
+
+    def make():
+        outs = (outputs() if outputs is not None else
+                _packed_outputs(cs, shapes, compact_cap, cs.device))
+
+        def body(ins, c, o):
+            return _packed_into(cs, ins, shapes, c, o, compact_cap, imdct)
+        return graphs.ChunkProgram(programs, body, inputs, carry, outs, full)
+    return programs.get(full, make)
+
+
+def _packed(programs, cs, inputs: tuple, shapes, carry, compact_cap=None,
+            imdct=imdct_batch):
+    """The packed functions' one route: eagerly into fresh outputs, or as a
+    program of ``programs`` (:func:`packed_program`)."""
+    if programs is not None:
+        return packed_program(programs, cs, inputs, shapes, carry,
+                              compact_cap, imdct)(inputs, carry)
+    outs = _packed_outputs(cs, shapes, compact_cap, inputs[0].device)
+    return outs, _packed_into(cs, inputs, shapes, carry, outs, compact_cap,
+                              imdct)
+
+
 def decode_chunk_batch_packed(cs, residue, bbuf, ibuf, fbuf, shapes, carry,
-                              compact_cap, imdct=imdct_batch):
+                              compact_cap, imdct=imdct_batch,
+                              programs: graphs.Programs | None = None):
     """One chunk over packed buffers, device-compacted output: ((pcm i16
     [S, cap, C], total [S], out_len [S, T]), carry). ``imdct`` as
-    :func:`decode_frames_core`'s (a mesh's tp transform)."""
-    fr = unpack_frame_buffers(residue, bbuf, ibuf, fbuf, shapes)
-    return decode_frames_core(cs, fr, carry, compact_cap=compact_cap,
-                              imdct=imdct)
+    :func:`decode_frames_core`'s (a mesh's tp transform). With
+    ``programs``, a program of that cache (:func:`packed_program`): its
+    outputs and carry are static buffers, with ``graphs``' lifetime."""
+    (pcm, totals, lens), carry = _packed(
+        programs, cs, (residue, bbuf, ibuf, fbuf), shapes, carry,
+        compact_cap, imdct)
+    return (pcm[0], totals[0], lens[0]), carry
 
 
 def decode_chunk_batch_packed_i16(cs, residue, bbuf, ibuf, fbuf, shapes,
-                                  carry):
+                                  carry,
+                                  programs: graphs.Programs | None = None):
     """One chunk over packed buffers through the i16 kernel path: ((i16
-    [S, T, C*outw], out_len), carry); the host compacts."""
-    fr = unpack_frame_buffers(residue, bbuf, ibuf, fbuf, shapes)
-    return decode_frames_core(cs, fr, carry, with_i16=True)
+    [S, T, C*outw], out_len), carry); the host compacts. ``programs`` as
+    :func:`decode_chunk_batch_packed`'s."""
+    (out, lens), carry = _packed(programs, cs, (residue, bbuf, ibuf, fbuf),
+                                 shapes, carry)
+    return (out[0], lens[0]), carry
 
 
 def decode_chunks_scan_packed_i16(cs, residue, bbuf, ibuf, fbuf, shapes,
-                                  carry):
+                                  carry,
+                                  programs: graphs.Programs | None = None):
     """N chunks over packed buffers whose leaves re-view to [N, S, T, ...],
-    i16 kernel path: ((i16 [N, S, T, C*outw], lens [N, S, T]), carry)."""
-    fr = unpack_frame_buffers(residue, bbuf, ibuf, fbuf, shapes)
-    return decode_chunks_scan(cs, fr, carry, with_i16=True)
+    i16 kernel path: ((i16 [N, S, T, C*outw], lens [N, S, T]), carry).
+    ``programs`` as :func:`decode_chunk_batch_packed`'s."""
+    return _packed(programs, cs, (residue, bbuf, ibuf, fbuf), shapes, carry)
 
 
 def decode_chunks_scan_packed(cs, residue, bbuf, ibuf, fbuf, shapes, carry,
-                              compact_cap):
+                              compact_cap,
+                              programs: graphs.Programs | None = None):
     """N chunks over packed buffers, device-compacted output: ((pcm i16
-    [N, S, cap, C], totals [N, S]), carry). One cap covers all N chunks."""
-    fr = unpack_frame_buffers(residue, bbuf, ibuf, fbuf, shapes)
-    N, S = fr["mode"].shape[:2]
-    dev = fr["mode"].device
-    pcm = torch.empty((N, S, compact_cap, cs.channels), dtype=torch.int16,
-                      device=dev)
-    totals = torch.empty((N, S), dtype=torch.int32, device=dev)
-    for i in range(N):
-        (pcm[i], totals[i], _), carry = decode_frames_core(
-            cs, _chunk(fr, i), carry, compact_cap=compact_cap)
+    [N, S, cap, C], totals [N, S]), carry). One cap covers all N chunks.
+    ``programs`` as :func:`decode_chunk_batch_packed`'s."""
+    (pcm, totals, _), carry = _packed(
+        programs, cs, (residue, bbuf, ibuf, fbuf), shapes, carry,
+        compact_cap)
     return (pcm, totals), carry
 
 
@@ -382,13 +552,21 @@ class TransferSlots:
     """The host buffers of a decode pipelined against ``sd``'s device, kept
     per slot of a double buffer and reused: the native frame buffers per
     (slot, N), pinned host-to-device buffers with an event after each
-    slot's last copies, and pinned device-to-host buffers copied into on a
-    side stream with an event per copy. A slot's buffers are rewritten only
-    after the event of the copies that last read or wrote them. On the CPU
-    the device works synchronously, so the arrays go in and out as they
-    are."""
+    slot's last copies, pinned device-to-host buffers copied into on a
+    side stream with an event per copy, and the decode programs
+    (``programs``, a ``graphs.Programs``; ``graphed=False`` runs them
+    eagerly): one per (slot, N, output length, layout). The programs of one
+    slot and N write their PCM into one device buffer, sized for the
+    largest output length a chunk can need, which no program of another
+    slot writes: a group never rewrites PCM that the other slot's copy out
+    still reads, and device memory does not grow with the output lengths
+    that serving meets. The programs share their static inputs, one set a
+    layout (``graphs.Programs``): all run in order on one stream. A slot's
+    buffers are rewritten only after the event of the copies that last
+    read or wrote them. On the CPU the device works synchronously, so the
+    arrays go in and out as they are."""
 
-    def __init__(self, sd: StreamDecoder):
+    def __init__(self, sd: StreamDecoder, graphed: bool = True):
         self.sd = sd
         self.device = sd.device
         self.pinned: dict = {}  # (slot, array index) -> pinned bytes
@@ -397,16 +575,20 @@ class TransferSlots:
         self.pinned_d2h: dict = {}  # slot -> pinned bytes of the PCM
         self.d2h_done: dict = {}  # slot -> event after its last copy
         self.d2h_stream = None
+        self.programs = graphs.Programs(graphed)
+        self.pcm: dict = {}  # (slot, N, S, T, route) -> device PCM buffer
 
-    def put(self, slot: int, arrays) -> tuple:
+    def put(self, slot: int, arrays, into: tuple) -> tuple:
         """Host-to-device copies of ``arrays`` through slot ``slot`` of the
-        pinned double buffer: the slot is rewritten only after the copies
-        that last read it have finished (their event), and the copies do
-        not block the host."""
+        pinned double buffer straight into ``into`` (a program's static
+        inputs, of the arrays' shapes and dtypes), which it returns: the
+        slot is rewritten only after the copies that last read it have
+        finished (their event), and the copies do not block the host."""
         if self.device.type != "cuda":
-            return tuple(torch.from_numpy(a) for a in arrays)
+            for d, a in zip(into, arrays):
+                d.copy_(torch.from_numpy(a))
+            return into
         self.wait_put(slot)
-        dev = []
         for j, a in enumerate(arrays):
             key = (slot, j)
             host = self.pinned.get(key)
@@ -417,10 +599,10 @@ class TransferSlots:
             view = host[: a.nbytes].view(
                 torch.from_numpy(a[:0]).dtype).reshape(a.shape)
             view.numpy()[...] = a
-            dev.append(view.to(self.device, non_blocking=True))
+            into[j].copy_(view, non_blocking=True)
         self.put_done[slot] = torch.cuda.Event()
         self.put_done[slot].record()
-        return tuple(dev)
+        return into
 
     def wait_put(self, slot: int) -> None:
         """Block until the host-to-device copies that last read ``slot``
@@ -505,31 +687,54 @@ class TransferSlots:
             else:
                 residue = pack12_np(residue)
             residue = residue.view(np.int32)
+        arrays = (residue, bb, ib, fb)
+        # "host": the i16 path's padded chunk; "device": a host int, one
+        # bucketed output length for all N chunks, keeps the output
+        # shapes (and so the programs) few
+        cap = (None if compact == "host" else
+               _bucket(int(lens.sum(-1).max()) + cs.n1))
+        S, T = lens.shape[1:]
+        prog = packed_program(
+            self.programs, cs, arrays, shapes, carry, cap, imdct,
+            lambda: self._outputs(slot, N, S, T, cap), key=(slot, N))
         if lap:
             lap("frontend")
-        dev = self.put(slot, (residue, bb, ib, fb))
+        dev = self.put(slot, arrays, prog.inputs)
         if lap:
             lap("h2d", device_work=True)
-        if compact == "host":
-            fn = (decode_chunks_scan_packed_i16 if N > 1
-                  else decode_chunk_batch_packed_i16)
-            (pcm, _), carry = fn(cs, *dev, shapes, carry)
-        else:
-            # a host int: one bucketed length for all N chunks keeps the
-            # output shapes few
-            cap = int(-(-(int(lens.sum(-1).max()) + cs.n1) // 8192) * 8192)
-            if N > 1:
-                (pcm, _), carry = decode_chunks_scan_packed(
-                    cs, *dev, shapes, carry, cap)
-            else:
-                (pcm, _, _), carry = decode_chunk_batch_packed(
-                    cs, *dev, shapes, carry, cap, imdct)
+        if slot in self.d2h_done:
+            # the program's outputs are what the slot's last device-to-host
+            # copy reads (the fresh allocation per call used to hide this)
+            torch.cuda.current_stream(self.device).wait_event(
+                self.d2h_done[slot])
+        outs, carry = prog(dev, carry)
+        pcm = outs[0] if N > 1 else outs[0][0]
         if lap:
             lap("device", device_work=True)
         host, copied = self.to_host_async(pcm, slot)
         return (host, copied, carry,
                 sum(int(a.numel() * a.element_size()) for a in dev),
                 int(pcm.numel() * pcm.element_size()))
+
+    def _outputs(self, slot: int, N: int, S: int, T: int, cap) -> tuple:
+        """The buffers a program of ``slot`` writes: the PCM a view of the
+        slot's buffer for (N, S, T, route), which the programs of every
+        ``cap`` share, sized for the largest cap of T packets (a packet
+        returns at most n1/2 samples); the lengths (and totals) its own."""
+        cs = self.sd.cs
+        full = None if cap is None else _bucket(T * cs.n1 // 2 + cs.n1)
+        key = (slot, N, S, T, full)
+        if key not in self.pcm:
+            self.pcm[key] = _scan_outputs(cs, N, S, T, cap is None, full,
+                                          self.device)[0]
+        return _scan_outputs(cs, N, S, T, cap is None, cap, self.device,
+                             pcm=self.pcm[key])
+
+
+def _bucket(samples: int) -> int:
+    """``compact_cap`` for ``samples``: the next multiple of 8,192, so that
+    the output lengths (and so the programs) are few."""
+    return -(-samples // 8192) * 8192
 
 
 class BatchDecoder:
@@ -575,7 +780,9 @@ class BatchDecoder:
         #: (and the front-end no longer overlaps the device)
         self.stage_sync = False
         self._bf_host = self.cs.mode_blockflag.cpu().numpy()
-        self._slots = TransferSlots(self._sd)
+        # the mesh's programs run eagerly: its collectives (the tp
+        # all-reduce inside the chunk) cannot be captured
+        self._slots = TransferSlots(self._sd, graphed=mesh is None)
         #: accounting of the last decode_streams* call: bytes shipped
         #: host->device and device->host (with a mesh, this rank's), the
         #: residue transport, and the host seconds per stage

@@ -76,6 +76,24 @@ HELD = (("models.decoder", "floor_spectra", "floor_spectra_ref"),
         ("ops.windowing", "overlap_i16_audio", "overlap_i16_audio_ref"))
 
 
+#: each wrapper of :data:`HELD` with the module the decoder looks it up in,
+#: as the package defines it (taken at import, before any swap)
+_DEFINED = tuple((importlib.import_module(f"lewton_tpu_torch.{mod}"), name,
+                  getattr(importlib.import_module(f"lewton_tpu_torch.{mod}"),
+                          name)) for mod, name, _ in HELD)
+#: launches of each kernel form (:data:`COUNTERS`' names) made by replayed
+#: CUDA graphs (``parallel.graphs``): a replay does not pass through the
+#: wrappers, whose counters count only the launches they make
+REPLAYED = dict.fromkeys(COUNTERS, 0)
+
+
+def kernels_in_use() -> bool:
+    """Whether every kernel wrapper the decoder calls (:data:`HELD`) is the
+    package's own: false inside :func:`plain_kernels` and
+    :func:`held_kernels` and wherever a caller has put a stand-in there."""
+    return all(getattr(m, name) is fn for m, name, fn in _DEFINED)
+
+
 class RankFailed(RuntimeError):
     """A rank exited non-zero or the run outlived its deadline."""
 
@@ -89,8 +107,22 @@ def _counters() -> dict:
 
 
 def _zero_counters() -> None:
+    """The wrappers' counters and :data:`REPLAYED` set to 0."""
     for m, a in COUNTERS.values():
         setattr(_module(m), a, 0)
+    REPLAYED.update(dict.fromkeys(REPLAYED, 0))
+
+
+def _set_counters(counts: dict) -> None:
+    for k, n in counts.items():
+        setattr(_module(COUNTERS[k][0]), COUNTERS[k][1], n)
+
+
+def _add_replayed(delta: dict) -> None:
+    """Add a replayed graph's launches (name -> launches) to
+    :data:`REPLAYED`."""
+    for k, n in delta.items():
+        REPLAYED[k] += n
 
 
 def spawn(dp: int, tp: int, job: str, out, backend: str = "gloo",
@@ -335,8 +367,7 @@ def _swapped(make):
     version takes no ``xs``), the wrappers restored in a ``finally``."""
     saved = []
     try:
-        for mod, name, ref_name in HELD:
-            m = importlib.import_module(f"lewton_tpu_torch.{mod}")
+        for (m, name, _), (_, _, ref_name) in zip(_DEFINED, HELD):
             saved.append((m, name, getattr(m, name)))
             setattr(m, name, make(getattr(m, name), getattr(m, ref_name),
                                   name == "floor_spectra"))

@@ -16,14 +16,16 @@ pipeline treats as no-ops.
 A step runs the reference's route: the native front-end entropy-decodes the
 group's packets (one call per sub-chunk), the frames travel packed
 (``parallel.batch.pack_frame_buffers``, the residue 12-bit packed on a slow
-link), ``decode_chunk_batch_packed`` / ``decode_chunks_scan_packed`` decode
-them with ``compact_cap`` (K1's flat form, the IMDCT GEMM, the f32
-overlap-add, ``compact_i16``) and the compacted i16 PCM comes back. The
-packing, the copies and the decode are
-:meth:`~lewton_tpu_torch.parallel.batch.TransferSlots.dispatch`, shared
-with ``BatchDecoder``, over its pinned, event-guarded double buffer; the
-device-to-host copy runs on a side stream, and collecting a step waits for
-that step's copy only.
+link), the group's chunk program decodes them with ``compact_cap`` (K1's
+flat form, the IMDCT GEMM, the f32 overlap-add, ``compact_i16``; the
+reference's ``decode_chunk_batch_packed`` / ``decode_chunks_scan_packed``,
+here one CUDA graph per (buffer slot, N, output length), ``parallel.graphs``)
+and the compacted i16 PCM comes back. The packing, the copies and the
+decode are :meth:`~lewton_tpu_torch.parallel.batch.TransferSlots.dispatch`,
+shared with ``BatchDecoder``, over its pinned, event-guarded double buffer;
+the device-to-host copy runs on a side stream, and collecting a step waits
+for that step's copy only. The group's window carry is its programs'
+static carry: retiring a stream resets its row in place.
 """
 
 from __future__ import annotations

@@ -53,6 +53,7 @@ assert {"lewton_tpu_torch.ops.coupling", "lewton_tpu_torch.ops.synth_kernel",
         "lewton_tpu_torch.ogg.demux", "lewton_tpu_torch.inside_ogg",
         "lewton_tpu_torch.parallel.pack12",
         "lewton_tpu_torch.parallel.batch",
+        "lewton_tpu_torch.parallel.graphs",
         "lewton_tpu_torch.native", "lewton_tpu_torch.serve",
         "lewton_tpu_torch.aio", "lewton_tpu_torch.profiling",
         "lewton_tpu_torch.debug", "lewton_tpu_torch.utils.bitwriter",
@@ -78,6 +79,7 @@ from lewton_tpu_torch.models import decoder
 from lewton_tpu_torch.models.decoder import compile_setup, precompute_brackets
 from lewton_tpu_torch.ops import floor_kernel, imdct, overlap_kernel, synth_kernel
 from lewton_tpu_torch.ops.windowing import init_window_carry
+from lewton_tpu_torch.parallel import graphs
 from lewton_tpu_torch.parallel.batch import decode_chunks_scan
 from lewton_tpu_torch.testing import (synthetic_floor0_frames,
                                       synthetic_frames, synthetic_headers)
@@ -115,6 +117,12 @@ for kw, fused, split, own in (
                                                 imdct=fn)
         assert torch.equal(out, out_p) and torch.equal(ln, ln_p)
         assert all(torch.equal(a, b) for a, b in zip(c, c_p))
+        # the same chunks as one program (its eager body on the CPU)
+        (out_g, ln_g), c_g = decode_chunks_scan(
+            cs, frs, carry, with_i16=with_i16, imdct=fn,
+            programs=graphs.Programs())
+        assert torch.equal(out, out_g) and torch.equal(ln, ln_g)
+        assert all(torch.equal(a, b) for a, b in zip(c, c_g))
 imdct.USE_DCT4_SPLIT = False
 
 # a committed gate stream, file to PCM on the native front-end, against
