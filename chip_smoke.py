@@ -777,10 +777,15 @@ def device_profile(fn, reps: int = 1):
                  schedule=schedule(wait=0, warmup=1, active=1),
                  on_trace_ready=lambda p: cycles.append(p.events())) as prof:
         for _ in range(2):
+            # some ms of an idle card on both sides of the calls inside the
+            # window: the profiler has dropped device records of a replay
+            # (see replay_profile)
+            time.sleep(0.005)
             with record_function(RANGE):
                 for _ in range(reps):
                     fn()
                 torch.cuda.synchronize()
+            time.sleep(0.005)
             prof.step()
     events = cycles[-1]
     call = next(e for e in events if e.name == RANGE
@@ -866,32 +871,53 @@ def same_bits(got, want, label: str) -> None:
                                  "graph and the eager run")
 
 
+#: profiles of one replay taken before replay_profile fails: the profiler
+#: has dropped device records of a replay on an H100 (2 of 8 K1 and K2
+#: launches of an 8-chunk replay in one run, 93 of a one-chunk replay's
+#: 179 activities in another, the outputs bit for bit the eager run's)
+PROFILE_TRIES = 3
+
+
 def replay_profile(label, prog, n_: int, card: str) -> dict:
     """One replay of ``prog`` (its own inputs and carry: no copy) under the
     profiler: the kernels in it by name, held to the launches the program
     recorded at capture, and the host's CUDA runtime calls (one graph
-    launch, no kernel launch)."""
-    (t0, t1), dev, runtime = device_profile(
-        lambda: prog(prog.inputs, prog.carry))
-    if not dev:
-        print(f"graphs profile {label}: the profiler recorded no device "
-              f"activity (not measured) | card: {card}")
-        return {}
+    launch, no kernel launch). Every profile must show those runtime calls
+    and no kernel beyond the recorded ones; one that shows fewer (device
+    records the profiler dropped) is taken again, up to PROFILE_TRIES
+    profiles, and every profile's count is printed."""
     want: dict[str, int] = {}
     for form, n in prog.launches.items():
         want[KERNEL_NAMES[form]] = want.get(KERNEL_NAMES[form], 0) + n
-    seen = {k: sum(k in name for _, _, name in dev) for k in KERNEL_NAMES.values()}
-    calls = {k: runtime.count(k) for k in set(runtime)}
+    tries = []
+    for _ in range(PROFILE_TRIES):
+        (t0, t1), dev, runtime = device_profile(
+            lambda: prog(prog.inputs, prog.carry))
+        if not dev:
+            print(f"graphs profile {label}: the profiler recorded no device "
+                  f"activity (not measured) | card: {card}")
+            return {}
+        seen = {k: sum(k in name for _, _, name in dev)
+                for k in KERNEL_NAMES.values()}
+        calls = {k: runtime.count(k) for k in set(runtime)}
+        tries.append({"device_activities": len(dev), "kernels": seen})
+        if any(seen[k] > want.get(k, 0) for k in seen) or \
+                calls.get("cudaGraphLaunch", 0) != 1 or \
+                calls.get("cudaLaunchKernel", 0):
+            raise AssertionError(f"graphs profile {label}: kernels {seen}, "
+                                 f"recorded {prog.launches}, runtime {calls}")
+        if all(seen[k] == want.get(k, 0) for k in seen):
+            break
+    else:
+        raise AssertionError(f"graphs profile {label}: recorded "
+                             f"{prog.launches}, profiles {tries}")
     busy, _ = busy_us((t0, t1), dev)
-    if any(seen[k] != want.get(k, 0) for k in seen) or \
-            calls.get("cudaGraphLaunch", 0) != 1 or \
-            calls.get("cudaLaunchKernel", 0):
-        raise AssertionError(f"graphs profile {label}: kernels {seen}, "
-                             f"recorded {prog.launches}, runtime {calls}")
     res = {"device_activities": len(dev), "kernels": {k: v for k, v in
                                                       seen.items() if v},
            "runtime_calls": calls, "wall_ms": (t1 - t0) / 1e3,
-           "device_busy_ms": busy / 1e3}
+           "device_busy_ms": busy / 1e3,
+           "profiles_taken": len(tries),
+           "activities_of_each": [t["device_activities"] for t in tries]}
     print(f"graphs profile {label}: one replay of {n_} chunks, "
           f"{json.dumps(res)} | card: {card}")
     return res
@@ -1049,8 +1075,216 @@ def graphs_phase(dev, card: str, cs, fr0, carry0) -> dict:
         summary[f"batch {compact}"] = rec
         del dec, outs, out
         torch.cuda.empty_cache()
+    summary["stream"], stream_launches = graphs_stream(dev, card)
     print(f"graphs phase ({time.perf_counter() - t_phase:.1f} s)")
-    return summary
+    return summary, stream_launches
+
+
+#: graphs stream: ABAB rounds of the timings, the packets of the
+#: per-packet timing
+STREAM_ROUNDS, STREAM_PACKETS = 2, 200
+
+
+def owner_programs(owner) -> dict:
+    """key -> (captured, replays) of each program of a ``graphs.Programs``."""
+    return {k: (p.graph is not None, p.replays)
+            for k, p in owner.programs.items()}
+
+
+def keep_decoders(rdr: OggStreamReader, into: list) -> OggStreamReader:
+    """``rdr`` with every StreamDecoder it makes appended to ``into`` (for
+    their ``stage_s``), each with ``made_s``: the host seconds of its
+    making (the setup header's Python parse, the native stream's and
+    compile_setup)."""
+    make = rdr._stream_decoder
+
+    def kept(**kw):
+        t0 = time.perf_counter()
+        into.append(make(**kw))
+        into[-1].made_s = time.perf_counter() - t0
+        return into[-1]
+    rdr._stream_decoder = kept
+    return rdr
+
+
+def stream_stages(decs: list, wall: float) -> dict:
+    """The host seconds of ``decs``' stages summed, their making less
+    compile_setup (``header_parse``: the setup header parsed in Python and
+    by the native stream), the reader's own rest (demux, granules,
+    concatenation: wall less the others) and the wall."""
+    st = {k: sum(d.stage_s[k] for d in decs) for k in decoder.STAGES}
+    st["header_parse"] = sum(getattr(d, "made_s", d.stage_s["compile_setup"])
+                             for d in decs) - st["compile_setup"]
+    return st | {"reader_rest": wall - sum(st.values()), "wall": wall}
+
+
+def stream_read(data: bytes, dev, fmt: str = "i16") -> tuple:
+    """read_all_i16 (or read_all_planar_f32) of a fresh reader on ``dev``:
+    (output, stages)."""
+    decs: list = []
+    rdr = keep_decoders(OggStreamReader(data, device=dev), decs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = rdr.read_all_i16() if fmt == "i16" else rdr.read_all_planar_f32()
+    return out, stream_stages(decs, time.perf_counter() - t0)
+
+
+def frames_key(prog) -> tuple:
+    """(T, with_i16) of a single-stream program."""
+    return prog.key[5][0][0][0], prog.key[3]
+
+
+def graphs_stream(dev, card: str) -> dict:
+    """The single-stream programs (``graphs.stream_programs``) on the card:
+    every gate stream's read_all_i16 and read_all_planar_f32 through them
+    bit for bit against the same calls under ``graphs.eager()``, the gate
+    at 0 samples over +/-2 LSB, the programs each stream made and whether
+    it replayed one an earlier stream captured; the per-packet loop on
+    PERM_STREAMS the same way; two readers of one setup interleaved packet
+    by packet, each its solo decode; a replay profile of a per-packet and
+    a 64-packet program; graph against eager ABAB on RATE_STREAM: a fresh
+    reader's read_all_i16 split by stage, a warm decoder's (one
+    StreamDecoder reset, no demux or compile_setup) and read_dec_packet's
+    host and wall us a packet; the owner's captures, capture seconds and
+    pool MB. Returns the summary and the gate's launches (wrappers and
+    replays)."""
+    t_phase = time.perf_counter()
+    owner = graphs.stream_programs(dev)
+    streams = gate_streams()
+    res: dict = {}
+    zero_launches()
+    for name, (data, golden, kind) in streams.items():
+        before = owner_programs(owner)
+        g16, _ = stream_read(data, dev)
+        g32, _ = stream_read(data, dev, "f32")
+        after = owner_programs(owner)
+        with graphs.eager():
+            e16, _ = stream_read(data, dev)
+            e32, _ = stream_read(data, dev, "f32")
+        same_bits((g16, g32), (e16, e32), f"graphs stream {name}")
+        new = [k for k in after if k not in before]
+        earlier = any(after[k][1] > before[k][1] for k in before)
+        if any(not after[k][0] for k in after):
+            raise AssertionError(f"graphs stream {name}: a program of the "
+                                 "owner was not captured")
+        if g16.shape != golden.shape:
+            raise AssertionError(f"graphs stream {name}: {g16.shape}, "
+                                 f"golden {golden.shape}")
+        d = lsb_diff(g16, golden)
+        if d[1]:
+            raise AssertionError(f"graphs stream {name}: {d[1]} samples "
+                                 f"over +/-{GATE_LSB}")
+        res[name] = {"maxdiff": d[0], "over": d[1], "new_programs": len(new),
+                     "replayed_earlier": earlier}
+        print(f"graphs stream {name} ({kind}): read_all_i16 and "
+              f"read_all_planar_f32 through programs == graphs.eager() bit "
+              f"for bit; gate maxdiff {d[0]} LSB, {d[1]} over "
+              f"+/-{GATE_LSB}; programs made {len(new)} "
+              f"{sorted(frames_key(owner.programs[k]) for k in new)} "
+              "(T, with_i16), replayed a program an earlier stream "
+              f"captured: {earlier}")
+    gate_launches = ran()
+    print(f"graphs stream gate: {len(streams)} streams, 0 over "
+          f"+/-{GATE_LSB}, launches (wrappers + replays) "
+          f"{json.dumps(gate_launches)}, owner {json.dumps(owner.stats())}"
+          f" | card: {card}")
+
+    # the per-packet loop, and two readers of one setup interleaved
+    for name in PERM_STREAMS:
+        data = streams[name][0]
+        before = owner_programs(owner)
+        got = packet_loop(data, "torch", dev)
+        with graphs.eager():
+            want = packet_loop(data, "torch", dev)
+        same_bits((got,), (want,), f"graphs stream packets {name}")
+        new = [k for k in owner.programs if k not in before]
+        print(f"graphs stream packets {name}: read_dec_packet loop "
+              f"({got.shape[0]} samples) through programs == graphs.eager()"
+              f" bit for bit; programs made {len(new)}")
+    data = streams[RATE_STREAM][0]
+    solo = packet_loop(data, "torch", dev)
+    rdrs = [OggStreamReader(data, device=dev) for _ in range(2)]
+    got = [[], []]
+    for _ in range(7):
+        got[1].append(rdrs[1].read_dec_packet())
+    while True:
+        ps = [r.read_dec_packet() for r in rdrs]
+        for j, p in enumerate(ps):
+            if p is not None:
+                got[j].append(p)
+        if all(p is None for p in ps):
+            break
+    for j in (0, 1):
+        same_bits((np.concatenate(got[j], axis=1).T,), (solo,),
+                  f"graphs stream interleaved reader {j}")
+    print(f"graphs stream interleaved: two readers of {RATE_STREAM}, the "
+          "second 7 packets ahead, packet by packet in turn: each == its "
+          "solo decode bit for bit (the carry rule)")
+
+    # one replay of the per-packet program (f32, as read_dec_packet
+    # decodes) and of the 64-packet i16 program of RATE_STREAM's setup
+    headers, pcks = stream_packets(data)
+    sd = StreamDecoder(headers.ident, headers.setup, device=dev,
+                       raw_headers=(headers.raw_ident, headers.raw_setup))
+    static = tuple(getattr(sd.cs, k) for k in sd.cs._static_names)
+    progs = {frames_key(p): p for p in owner.programs.values()
+             if p.key[1] == static}
+    profiles = {}
+    for (t_, i16) in ((1, False), (64, True)):
+        profiles[f"T={t_}"] = replay_profile(
+            f"stream T={t_} with_i16={i16}", progs[(t_, i16)], 1, card)
+
+    # graph against eager, ABAB
+    audio_s = streams[RATE_STREAM][1].shape[0] / headers.ident.sample_rate
+    ab: dict = {"graph": {}, "eager": {}}
+    for _ in range(STREAM_ROUNDS):
+        for way in ("graph", "eager"):
+            ctx = graphs.eager if way == "eager" else contextlib.nullcontext
+            rec = ab[way]
+            with ctx():
+                _, st = stream_read(data, dev)
+                rec.setdefault("fresh_read_all_i16_s", []).append(st)
+                sd.reset()
+                sd.stage_s = dict.fromkeys(decoder.STAGES, 0.0)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sd.decode_packets_i16(pcks)
+                rec.setdefault("warm_decode_s", []).append(stream_stages(
+                    [sd], time.perf_counter() - t0))
+                decs: list = []
+                rdr = keep_decoders(OggStreamReader(data, device=dev), decs)
+                rdr.read_dec_packet()  # the reader's decoder made, untimed
+                decs[0].stage_s = dict.fromkeys(decoder.STAGES, 0.0)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                n = 0
+                while n < STREAM_PACKETS and rdr.read_dec_packet() is not None:
+                    n += 1
+                wall = time.perf_counter() - t0
+                rec.setdefault("packet_us", []).append({
+                    "host_device_call": 1e6 * decs[0].stage_s["device"] / n,
+                    "frontend": 1e6 * decs[0].stage_s["frontend"] / n,
+                    "d2h": 1e6 * decs[0].stage_s["d2h"] / n,
+                    "wall": 1e6 * wall / n, "packets": n})
+    for way, rec in ab.items():
+        rec["x_realtime_fresh"] = [audio_s / st["wall"]
+                                   for st in rec["fresh_read_all_i16_s"]]
+    st = owner.stats()
+    print(f"graphs stream timing ({RATE_STREAM}, {audio_s:.2f} s of audio;"
+          f" ABAB, {STREAM_ROUNDS} rounds; seconds a call by stage: "
+          "compile_setup, frontend, device = the program's copies in and "
+          "replay or eager enqueue, d2h = the copies out waiting for the "
+          "device, header_parse = the decoder's making less compile_setup,"
+          f" reader_rest = demux and the rest): {json.dumps(ab)} | card: "
+          f"{card}")
+    print(f"graphs stream owner: {len(owner.programs)} programs, captured "
+          f"{st['captured']}, capture {st['capture_s']:.3f} s, first uses "
+          f"{st['first_use_s']:.3f} s, replays {st['replays']}, pool "
+          f"{st['pool_mb']:.1f} MB, card {json.dumps(device_mb())} | card: "
+          f"{card}")
+    print(f"graphs stream phase ({time.perf_counter() - t_phase:.1f} s)")
+    return {"streams": res, "profiles": profiles, "ab": ab,
+            "owner": st}, gate_launches
 
 
 #: the streams of the reference's production permutations (bench.PERMUTATIONS,
@@ -1632,16 +1866,19 @@ MESH_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "lewton_tpu_torch", "mesh_run")
 
 
-def mesh_spec(copies: int) -> list:
+def mesh_spec(copies: int, tp: int) -> list:
     """The cases every rank runs (parallel/launch.py ``cases``): the
     headline setup's chunks through decode_chunk_sharded (i16, one untimed
-    warm-up run), then ``copies`` copies of each PERM_STREAMS stream
-    through BatchDecoder(mesh=).decode_streams_i16 on the native
-    front-end; each case ``held``: run again after the timed run, every
-    kernel launch held against its plain version on the same inputs."""
+    warm-up run; at tp = 1 through programs, captured in the warm-up, and
+    run again eagerly after the timed run), then ``copies`` copies of each
+    PERM_STREAMS stream through BatchDecoder(mesh=).decode_streams_i16 on
+    the native front-end (graphed transfer slots at tp = 1); each case
+    ``held``: run again after the timed run, every kernel launch held
+    against its plain version on the same inputs."""
     return ([{"name": "chunk", "kind": "chunk", "setup": [2, 8, 11],
               "S": MESH_S, "T": MESH_T, "N": MESH_N, "seed": 3,
-              "with_i16": True, "warmup": 1, "held": True}]
+              "with_i16": True, "warmup": 1, "held": True,
+              "programs": tp == 1}]
             + [{"name": f"perm_{n}", "kind": "streams",
                 "file": os.path.join(GATE_DIR, f"{n}.ogg"),
                 "lengths": [None] * copies, "chunk": 64, "i16": True,
@@ -1731,6 +1968,29 @@ def mesh_check(label, dp, tp, out_dir, ref: dict, streams: dict) -> dict:
                     != rec0["digest_gathered"]):
                 raise AssertionError(f"{label} {name}: rank {r['rank']} "
                                      "differs from its tp peers")
+    graphed = ""
+    if tp == 1:
+        # the chunks through programs: one captured a rank, bit for bit the
+        # rank's eager run; the batch decoder's slots graphed
+        for r in recs:
+            c = r["cases"]["chunk"]
+            if c["programs"]["captured"] != 1 or \
+                    c["eager"]["eager_maxdiff"] or any(
+                        c["eager"][d] != c[d] for d in ("digest_block",
+                                                        "digest_gathered")) \
+                    or not all(r["cases"][f"perm_{n}"]["graphed"]
+                               for n in PERM_STREAMS):
+                raise AssertionError(f"{label} rank {r['rank']}: programs "
+                                     f"{c['programs']}, eager maxdiff "
+                                     f"{c['eager']['eager_maxdiff']}")
+        c = recs[0]["cases"]["chunk"]["programs"]
+        graphed = (f"; decode_chunk_sharded through programs ({c['captured']}"
+                   f" captured a rank, {c['replays']} replays, pool "
+                   f"{c['pool_mb']} MB) == the rank's eager run bit for "
+                   "bit, BatchDecoder(mesh=) slots graphed ("
+                   + ", ".join(str(recs[0]["cases"][f"perm_{n}"]["programs"]
+                                   ["captured"]) for n in PERM_STREAMS)
+                   + " programs captured)")
     held = {}
     plain_diff = 0.0
     for r in recs:
@@ -1804,7 +2064,7 @@ def mesh_check(label, dp, tp, out_dir, ref: dict, streams: dict) -> dict:
           f"{json.dumps(perm)}; every case again on the plain versions: "
           f"maxdiff {plain_diff} from the kernels' run, launches held "
           f"against their plain versions on the same inputs (all ranks): "
-          f"{json.dumps(held)}")
+          f"{json.dumps(held)}{graphed}")
     return {"launches": total, "ms": ms, "held": held}
 
 
@@ -1836,7 +2096,7 @@ def mesh_phase(dev, card: str) -> dict:
         os.makedirs(out, exist_ok=True)
         spec = os.path.join(out, "spec.json")
         with open(spec, "w") as f:
-            json.dump({"cases": mesh_spec(max(2, dp))}, f)
+            json.dump({"cases": mesh_spec(max(2, dp), tp)}, f)
         ts = time.perf_counter()
         spawn(dp, tp, "cases", out, backend, dev.type, spec,
               timeout=MESH_TIMEOUT)
@@ -2725,7 +2985,7 @@ def main() -> None:
         profile_path(label, cs_p, frs_p, carry0, with_i16, top=5)
 
     # ---- 6b. the chunk programs: graph against eager ----
-    graphs_phase(dev, card, cs, fr0, carry0)
+    _, stream_launches = graphs_phase(dev, card, cs, fr0, carry0)
 
     # ---- 7. the conformance gate on the committed streams ----
     conformance(dev, card)
@@ -2764,13 +3024,16 @@ def main() -> None:
             "source": f"lewton_tpu_torch/csrc/{src}",
             "replaces": f"lewton_tpu/ops/{replaces}",
             # launches: the path's own drive; launches_mesh: the mesh
-            # phase's, summed over its ranks; launches_backends: the
+            # phase's, summed over its ranks; launches_stream: the gate's
+            # single-stream reads through programs (wrappers and
+            # replays; graphs_stream); launches_backends: the
             # backends phase's torch backend; launches_bench: the bench
             # surfaces', summed, through the wrappers, and
             # launches_bench_replayed by their replayed graphs (the
             # launches each recorded at capture, held to a profile of one
             # replay of the headline's program)
             "launches": n_launch, "launches_mesh": mesh_launches[key],
+            "launches_stream": stream_launches[key],
             "launches_backends": backends_launches[key],
             "launches_bench": bench_launches[key],
             "launches_bench_replayed": bench_replayed[key],

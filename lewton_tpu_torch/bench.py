@@ -372,7 +372,10 @@ def bench_check(args, dev, names=None) -> dict:
     return _line("conformance_max_lsb_diff", worst, "i16_lsb", {
         "samples_over_2lsb": bad, "production_permutations": results,
         "streams": len(streams),
-        "left_out": gate_manifest()["left_out"]}, dev) | {
+        "left_out": gate_manifest()["left_out"],
+        # the programs read_all_i16 ran through: made, captured, replays,
+        # capture seconds and the pool's MB
+        "stream_programs": graphs.stream_programs(dev).stats()}, dev) | {
         "vs_baseline": 1.0 if bad == 0 and worst <= GATE_LSB else 0.0}
 
 

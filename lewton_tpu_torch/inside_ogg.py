@@ -162,9 +162,13 @@ class OggStreamReader:
         """Decode one packet to planar f32 [ch, out].
 
         On the torch backend a persistent 1-packet-chunk StreamDecoder
-        carries the window state across calls: correct but launch-bound;
-        for throughput use read_all_* / BatchDecoder, which amortize over
-        whole chunks."""
+        carries the window state across calls; each packet is one replay
+        of the device's single-stream program for this setup geometry (a
+        CUDA graph on a card, ``parallel.graphs.stream_programs``), plus
+        the frames' copies in, the carry's copy and two copies out. PERF.md
+        gives its host and wall time a packet on an H100 against the eager
+        path's; for throughput use read_all_* / BatchDecoder, which decode
+        whole chunks a call."""
         self._decode_started = True
         if self.backend == "native":
             if self._native_dec is None:
@@ -285,7 +289,7 @@ class OggStreamReader:
         """Decode the whole stream to planar f32 [ch, samples].
 
         On the torch backend: host entropy decode, then chunked
-        `decode_frames` on the device; the native backend decodes each
+        `decode_frames` on the device, one program replay a chunk; the native backend decodes each
         chain link in one call; the numpy backend packet by packet."""
         if self.backend == "torch":
             return self._read_all_device(i16=False)

@@ -43,7 +43,9 @@ another), carrying the window state across chunks.
 
 from __future__ import annotations
 
+import dataclasses
 import os
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -71,6 +73,7 @@ __all__ = ["CompiledSetup", "compile_setup", "from_jax_setup",
            "synthesis_route", "precompute_brackets", "synthesize_spectra_tapped",
            "synthesize_audio_tapped", "synthesize_audio", "finish_stream",
            "split_ok", "decode_frames_core", "decode_frames",
+           "frames_program", "routing_flags",
            "USE_FUSED_SYNTH_KERNEL", "DEFAULT_CHUNK", "pack_frames",
            "compact_invalid_frames", "predict_out_lens", "frames_to_device",
            "StreamDecoder"]
@@ -578,18 +581,102 @@ def decode_frames_core(cs: CompiledSetup, fr: dict, carry,
                          plain, out)
 
 
-def decode_frames(cs: CompiledSetup, fr: dict, carry, with_i16: bool = False,
-                  compact_cap: int | None = None, with_taps: bool = False):
-    """Single-stream chunk decode: frame leaves [T, ...], carry (pwr
-    [C, n1/2], plen [], started []); outputs as
-    :func:`decode_frames_core`'s without the stream axis."""
+def _decode_one(cs: CompiledSetup, fr: dict, carry, with_i16: bool,
+                compact_cap, with_taps: bool = False, out=None):
+    """One stream's chunk through :func:`decode_frames_core` (a stream
+    axis of 1 added and taken off); ``out`` [T, ...], if given, is written
+    in place."""
     fr = {k: tuple(b[None] for b in v) if isinstance(v, tuple) else v[None]
           for k, v in fr.items()}
     res, carry = decode_frames_core(cs, fr, tuple(c[None] for c in carry),
-                                    with_i16, compact_cap, with_taps)
+                                    with_i16, compact_cap, with_taps,
+                                    out=None if out is None else out[None])
     res = tuple({k: v[0] for k, v in r.items()} if isinstance(r, dict)
                 else r[0] for r in res)
     return res, tuple(c[0] for c in carry)
+
+
+def routing_flags() -> tuple:
+    """The routing flags a chunk reads while it is enqueued, which a
+    captured graph would keep: part of every program's key."""
+    return (imdct_mod.USE_DCT4_SPLIT, USE_FUSED_SYNTH_KERNEL)
+
+
+def frames_program(programs, cs: CompiledSetup, fr: dict, carry,
+                   with_i16: bool = False, compact_cap: int | None = None):
+    """The program of ``programs`` (a ``parallel.graphs.Programs``) that
+    decodes one chunk of one stream, frames of ``fr``'s layout (leaves
+    [T, ...]) from ``carry``'s layout, made at its first use: the
+    counterpart of the reference's jitted ``decode_frames``. Keyed as that
+    jit is: the setup's static fields and its tables' signature (not its
+    identity), ``with_i16``, ``compact_cap``, the frames' signature and the
+    routing flags. The setup's tables are loaded into the owner's static
+    copy of their layout (``Programs.static_tables``, a copy only when the
+    setup changes), and the program reads them there, so every setup of
+    one geometry shares it. Call it as ``prog(fr, carry)`` -> ((out,
+    out_len) or (pcm, total, out_len), carry); ``fr`` may lie on the host,
+    and is copied straight into the program's static inputs."""
+    from ..parallel import graphs
+
+    tables = {k: getattr(cs, k) for k in CompiledSetup._leaf_names}
+    static = programs.static_tables(tables, cs)
+    key = ("frames",
+           tuple(getattr(cs, k) for k in CompiledSetup._static_names),
+           graphs.signature(tables), bool(with_i16), compact_cap,
+           graphs.signature(fr), routing_flags())
+
+    def make():
+        scs = dataclasses.replace(cs, **static)
+        dev, T, C = cs.device, fr["mode"].shape[0], cs.channels
+        outw = 3 * cs.n1 // 4
+        lens = torch.empty(T, dtype=torch.int32, device=dev)
+        if compact_cap is not None:
+            outs = (torch.empty((compact_cap, C), dtype=torch.int16,
+                                device=dev),
+                    torch.empty((), dtype=torch.int32, device=dev), lens)
+        elif with_i16:
+            outs = (torch.empty((T, C * outw), dtype=torch.int16,
+                                device=dev), lens)
+        else:
+            outs = (torch.empty((T, C, outw), dtype=torch.float32,
+                                device=dev), lens)
+
+        def body(inputs, c, o):
+            res, c = _decode_one(scs, inputs, c, with_i16, compact_cap,
+                                 out=None if compact_cap is not None
+                                 else o[0])
+            for dst, src in zip(o, res):
+                if not graphs._same(dst, src):  # out_len; compact's
+                    dst.copy_(src)
+            return c
+        return graphs.ChunkProgram(programs, body, fr, carry, outs, key)
+    return programs.get(key, make)
+
+
+def decode_frames(cs: CompiledSetup, fr: dict, carry, with_i16: bool = False,
+                  compact_cap: int | None = None, with_taps: bool = False,
+                  programs=None):
+    """Single-stream chunk decode: frame leaves [T, ...], carry (pwr
+    [C, n1/2], plen [], started []); outputs as
+    :func:`decode_frames_core`'s without the stream axis.
+
+    With ``programs`` (a ``parallel.graphs.Programs``) the chunk runs as a
+    program of that owner (:func:`frames_program`): captured as a CUDA
+    graph at its first call on a card and replayed, one dispatch a chunk,
+    as the reference's jitted ``decode_frames``. Its outputs are then the
+    program's own buffers, valid until its next run, and its carry the
+    owner's, valid until the next run of any of its programs with that
+    carry layout (``graphs``' lifetime); ``fr`` may lie on the host.
+    ``with_taps`` is taken eagerly only (``debug.taps``). Without
+    ``programs`` the chunk is enqueued one op at a time into fresh
+    outputs."""
+    if programs is None:
+        return _decode_one(cs, fr, carry, with_i16, compact_cap, with_taps)
+    if with_taps:
+        raise ValueError("a program takes no with_taps: the taps run "
+                         "eagerly (programs=None)")
+    return frames_program(programs, cs, fr, carry, with_i16,
+                          compact_cap)(fr, carry)
 
 
 # --------------------------------------------------------------------------- #
@@ -696,6 +783,10 @@ def frames_to_device(fr: dict, device) -> dict:
 # --------------------------------------------------------------------------- #
 
 
+#: the stages of :attr:`StreamDecoder.stage_s`
+STAGES = ("compile_setup", "frontend", "device", "d2h")
+
+
 class StreamDecoder:
     """Per-stream chunked decode (lewton_tpu.models.decoder.StreamDecoder):
     entropy-decode packets on the host, run the chunk core on ``device``
@@ -724,7 +815,14 @@ class StreamDecoder:
         self.setup = setup
         self.chunk = chunk
         self.device = torch.device(device)
+        #: host seconds by stage: compile_setup (here), the front-end
+        #: (entropy decode into frames), the device call (the program's
+        #: copies in and its replay or eager enqueue, the carry's copy) and
+        #: the copies out, which wait for the device
+        self.stage_s = dict.fromkeys(STAGES, 0.0)
+        t0 = time.perf_counter()
         self.cs = compile_setup(ident, setup, device=self.device)
+        self.stage_s["compile_setup"] = time.perf_counter() - t0
         self._native = None
         if frontend != "python" and raw_headers is not None:
             self._native = NativeStream(*raw_headers)
@@ -859,17 +957,37 @@ class StreamDecoder:
         return fr
 
     def _decode(self, packets: list[bytes], with_i16: bool):
+        """Each chunk of ``packets`` through this device's single-stream
+        programs (``graphs.stream_programs``; one program per setup
+        geometry, shared with every decoder there): the host frames are
+        copied straight into the program's inputs, and the carry it
+        returns, the owner's, is copied into fresh tensors of this
+        decoder's own before anything else runs there (the carry rule;
+        fresh, so a state taken from the old ones stays as it was)."""
+        from ..parallel import graphs
+
+        owner = graphs.stream_programs(self.cs.device)
         outs: list[np.ndarray] = []
         C = self.cs.channels
+        st = self.stage_s
         for i in range(0, len(packets), self.chunk):
+            t0 = time.perf_counter()
             batch = packets[i: i + self.chunk]
-            fr = frames_to_device(self.entropy_chunk(batch), self.device)
-            (out, out_len), self.carry = decode_frames(
-                self.cs, fr, self.carry, with_i16=with_i16)
-            out = out.cpu().numpy()
+            fr = {k: torch.from_numpy(np.ascontiguousarray(v))
+                  for k, v in self.entropy_chunk(batch).items()}
+            t1 = time.perf_counter()
+            (out, out_len), carry = decode_frames(
+                self.cs, fr, self.carry, with_i16=with_i16, programs=owner)
+            self.carry = tuple(c.clone() for c in carry)
+            t2 = time.perf_counter()
+            # a copy on the CPU too: the program's next run rewrites out
+            out = out.to("cpu", copy=True).numpy()
             if with_i16:
                 out = out.reshape(len(out), C, -1)
             out_len = out_len.cpu().numpy()
+            st["frontend"] += t1 - t0
+            st["device"] += t2 - t1
+            st["d2h"] += time.perf_counter() - t2
             for t in range(len(batch)):
                 outs.append(out[t, :, : int(out_len[t])])
         return outs

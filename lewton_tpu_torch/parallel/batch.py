@@ -36,8 +36,11 @@ contraction axis, and an all-reduce over the tp group rebuilds each block
 (:func:`_imdct_tp`). :func:`decode_chunk_sharded` returns the global
 outputs on every rank (an all-gather over dp); ``BatchDecoder(mesh=)``
 entropy-decodes only the rank's block and gathers the host PCM at the end.
-``parallel/launch.py`` starts the ranks. The mesh's programs run eagerly:
-its collectives cannot be captured.
+``parallel/launch.py`` starts the ranks. At tp = 1 the mesh's chunks run
+as programs like any other (``decode_chunk_sharded(programs=)``, and
+``BatchDecoder(mesh=)``'s transfer slots), the all-gather over dp outside
+them; at tp > 1 they run eagerly, as the tp all-reduce sits inside the
+chunk and gloo's collectives cannot be captured.
 """
 
 from __future__ import annotations
@@ -51,11 +54,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..models import decoder as _decoder
 from ..models.decoder import (CompiledSetup, StreamDecoder,
                               decode_frames_core, frames_to_device,
-                              predict_out_lens)
-from ..ops import imdct as _imdct_mod
+                              predict_out_lens, routing_flags)
 from ..ops.imdct import imdct_batch
 from ..ops.windowing import init_window_carry
 from . import graphs
@@ -116,12 +117,6 @@ def _scan_into(cs: CompiledSetup, frs: dict, carry, outs: tuple,
     return carry
 
 
-def _routing() -> tuple:
-    """The routing flags a chunk reads while it is enqueued, which a
-    captured graph would keep: part of every program's key."""
-    return (_imdct_mod.USE_DCT4_SPLIT, _decoder.USE_FUSED_SYNTH_KERNEL)
-
-
 def scan_program(programs: graphs.Programs, cs: CompiledSetup, frs: dict,
                  carry, with_i16: bool = False, compact_cap=None,
                  plain: bool = False, imdct=imdct_batch):
@@ -131,7 +126,7 @@ def scan_program(programs: graphs.Programs, cs: CompiledSetup, frs: dict,
     ``decode_chunks_scan``, keyed as ``graphs`` says. Call it as
     ``prog(frs, carry)`` -> ((out, lens) or (pcm, totals, lens), carry)."""
     key = ("scan", id(cs), bool(with_i16), compact_cap, plain, imdct,
-           graphs.signature(frs), _routing())
+           graphs.signature(frs), routing_flags())
 
     def make():
         N, S, T = frs["mode"].shape
@@ -340,7 +335,8 @@ def _gather_dp(mesh, x: torch.Tensor) -> torch.Tensor:
 
 
 def decode_chunk_sharded(mesh, cs: CompiledSetup, fr: dict, carry,
-                         with_i16: bool = False, compact_cap=None):
+                         with_i16: bool = False, compact_cap=None,
+                         programs: graphs.Programs | None = None):
     """Chunk decode over a (dp, tp) mesh (reference
     ``decode_chunk_sharded``), called by every rank with the same global
     inputs: frames leaves [S, T, ...] and carry leaves [S, ...], S
@@ -349,16 +345,30 @@ def decode_chunk_sharded(mesh, cs: CompiledSetup, fr: dict, carry,
     :func:`decode_frames_core` with the mesh's IMDCT (``_mesh_imdct``: at
     tp > 1 the tp IMDCT and its all-reduce), and an all-gather over dp
     returns the global outputs and carry on every rank, as the reference's
-    ``out_specs=P("dp")``. ``compact_cap`` must be the same on every rank."""
+    ``out_specs=P("dp")``. ``compact_cap`` must be the same on every rank.
+
+    With ``programs`` (the counterpart of the jit over the reference's
+    ``shard_map``) the block runs as a one-chunk program of that owner
+    (:func:`decode_chunk_batch`), then the all-gather over dp runs outside
+    it: at tp = 1 the block holds no collective, and on a card its program
+    is captured and replayed. At dp = 1 the outputs and carry returned are
+    then the program's and the owner's (``graphs``' lifetime); at dp > 1
+    the gathered tensors are fresh. At tp > 1 the block is decoded eagerly
+    whatever ``programs`` says: the tp all-reduce sits inside the chunk,
+    and gloo's collectives cannot be captured."""
     lo, hi = _dp_block(mesh, fr["mode"].shape[0])
+    imdct = _mesh_imdct(mesh)
+    if imdct is not imdct_batch:
+        programs = None
 
     def blk(v):
         return tuple(b[lo:hi] for b in v) if isinstance(v, tuple) \
             else v[lo:hi]
 
-    res, carry = decode_frames_core(
+    res, carry = decode_chunk_batch(
         cs, {k: blk(v) for k, v in fr.items()}, blk(carry),
-        with_i16=with_i16, compact_cap=compact_cap, imdct=_mesh_imdct(mesh))
+        with_i16=with_i16, compact_cap=compact_cap, programs=programs,
+        imdct=imdct)
     return (tuple(_gather_dp(mesh, x) for x in res),
             tuple(_gather_dp(mesh, c) for c in carry))
 
@@ -446,7 +456,7 @@ def packed_program(programs: graphs.Programs, cs: CompiledSetup,
     inputs = tuple(torch.from_numpy(a) if isinstance(a, np.ndarray) else a
                    for a in inputs)
     full = ("packed", id(cs), compact_cap, imdct, shapes,
-            graphs.signature(inputs), _routing()) + tuple(key)
+            graphs.signature(inputs), routing_flags()) + tuple(key)
 
     def make():
         outs = (outputs() if outputs is not None else
@@ -780,9 +790,11 @@ class BatchDecoder:
         #: (and the front-end no longer overlaps the device)
         self.stage_sync = False
         self._bf_host = self.cs.mode_blockflag.cpu().numpy()
-        # the mesh's programs run eagerly: its collectives (the tp
-        # all-reduce inside the chunk) cannot be captured
-        self._slots = TransferSlots(self._sd, graphed=mesh is None)
+        # at tp > 1 the programs run eagerly: the tp all-reduce sits inside
+        # the chunk, and gloo's collectives cannot be captured; at tp = 1 a
+        # chunk holds no collective (the dp gather runs after the decode)
+        self._slots = TransferSlots(
+            self._sd, graphed=mesh is None or mesh["tp"].size() == 1)
         #: accounting of the last decode_streams* call: bytes shipped
         #: host->device and device->host (with a mesh, this rank's), the
         #: residue transport, and the host seconds per stage

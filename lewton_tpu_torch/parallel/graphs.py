@@ -1,6 +1,7 @@
 """Captured chunk programs: the port's counterpart of the reference's
-``jax.jit`` over ``lax.scan`` (lewton_tpu/parallel/batch.py:66-89,
-183-229).
+``jax.jit`` programs: over ``lax.scan`` (lewton_tpu/parallel/batch.py:66-89,
+183-229), the single-stream ``decode_frames`` (models/decoder.py:752) and
+the dp mesh's ``shard_map`` (parallel/batch.py:246-265).
 
 The reference compiles each chunk program once per shape and runs N chunks
 in one device dispatch, to spread the host's per-dispatch cost over them.
@@ -31,21 +32,45 @@ from the same carry layout in one :class:`Programs` share it). The same
 holds for the static inputs, per input layout. Copy what must outlive
 that.
 
-:class:`Programs` keys the programs as the reference's jit does: the caller
-builds the key from the setup's identity (the program holds the setup, so
-the identity is not reused while it lives), the static arguments
-(``with_i16``, ``compact_cap``), the frames' signature and N, and the
-routing flags read while the program is made (``USE_DCT4_SPLIT``,
-``USE_FUSED_SYNTH_KERNEL``), which a captured graph would otherwise keep.
+**Keys.** :class:`Programs` keys the programs as the reference's jit
+does. The batch programs (``parallel/batch.py``) take the setup's identity
+(the program holds the setup, so the identity is not reused while it
+lives), the static arguments (``with_i16``, ``compact_cap``), the frames'
+signature and N, and the routing flags read while the program is made
+(``USE_DCT4_SPLIT``, ``USE_FUSED_SYNTH_KERNEL``), which a captured graph
+would otherwise keep. The single-stream programs
+(``models.decoder.frames_program``, the counterpart of the reference's
+jitted ``decode_frames``) take the setup's geometry in its place, as the
+reference's jit does for its pytree ``CompiledSetup``: the static fields
+(``CompiledSetup._static_names``) and the :func:`signature` of the table
+leaves, with ``with_i16``, ``compact_cap``, the frames' signature and the
+routing flags. Their setup tables are inputs: the owner keeps one static
+copy of each table layout (:meth:`Programs.static_tables`), into which a
+call copies the caller's setup's tables unless they are the ones it holds
+already, so a fresh reader of a setup geometry the process has seen
+replays the program it captured, and the tables move only when the setup
+changes.
+
+**Owners.** A batch caller owns its :class:`Programs` (``TransferSlots``,
+the bench). The single-stream path has one owner per device for the whole
+process (:func:`stream_programs`), the counterpart of jit's process-wide
+cache: every ``StreamDecoder`` on that device, and so every
+``OggStreamReader`` of the torch backend, the async reader and the
+examples, runs its chunks through it. Its carry of a layout is shared by
+every stream decoded there, so a ``StreamDecoder`` copies the carry a run
+returns into its own tensors before any other run of that owner (the
+carry rule; see the lifetime above). An owner's programs run on one
+thread.
 
 **No fallback.** On a card, a capture that fails raises
 :class:`CaptureError` naming the op that broke it; nothing runs eagerly in
-its place. A program runs its body eagerly, on the same static buffers, on
-the CPU (which the caller asks for, as the tests do), inside
-:func:`eager` (the counterpart of ``jax.disable_jit()``), in an owner made
-with ``graphed=False`` (the mesh's, whose collectives cannot be captured),
-and whenever a kernel wrapper is not the package's own
-(``launch.kernels_in_use``).
+its place. A program runs its body eagerly, on the same static buffers, in
+these cases only: on the CPU (which the caller asks for, as the tests do);
+inside :func:`eager` (the counterpart of ``jax.disable_jit()``); whenever a
+kernel wrapper is not the package's own (``launch.kernels_in_use``); and
+in an owner made with ``graphed=False``, which is a mesh's at tp > 1,
+whose tensor-parallel IMDCT all-reduces inside the chunk (gloo's
+collectives cannot be captured).
 
 Where capture is likely to break, and what this module does about it:
 
@@ -79,14 +104,18 @@ from __future__ import annotations
 import contextlib
 import time
 import traceback
+import weakref
 
 import torch
 
 from . import launch
 
-__all__ = ["ChunkProgram", "Programs", "CaptureError", "eager", "signature"]
+__all__ = ["ChunkProgram", "Programs", "CaptureError", "eager", "signature",
+           "stream_programs"]
 
 _EAGER_DEPTH = 0
+#: the single-stream owner of each device (:func:`stream_programs`)
+_STREAM_OWNERS: dict = {}
 
 
 @contextlib.contextmanager
@@ -191,6 +220,9 @@ class Programs:
         self.programs: dict = {}
         self._carries: dict = {}
         self._inputs: dict = {}
+        #: id of a static table set -> weak reference to the source whose
+        #: tables it holds (:meth:`static_tables`)
+        self._sources: dict = {}
         self.pool = None
         self._stream = None
 
@@ -222,6 +254,20 @@ class Programs:
             st = self._inputs[key] = _static_like(inputs, device)
         return st
 
+    def static_tables(self, tables: dict, source) -> dict:
+        """The owner's static copy of ``tables`` (a dict of tensors: a
+        setup's tables; one copy per layout, :meth:`static_inputs`),
+        holding ``source``'s: copied in unless it holds that source's
+        already. ``source`` (the setup) is held weakly, so a freed source's
+        id, reused by another, never passes for it; its tables must not be
+        written after it is first given."""
+        st = self.static_inputs(tables, next(iter(tables.values())).device)
+        ref = self._sources.get(id(st))
+        if ref is None or ref() is not source:
+            _load(st, tables)
+            self._sources[id(st)] = weakref.ref(source)
+        return st
+
     def side_stream(self, device) -> torch.cuda.Stream:
         if self._stream is None:
             self._stream = torch.cuda.Stream(device)
@@ -243,6 +289,19 @@ class Programs:
                 "first_use_s": sum(p.first_s or 0.0 for p in progs),
                 "capture_s": sum(p.capture_s or 0.0 for p in progs),
                 "pool_mb": self.pool_mb()}
+
+
+def stream_programs(device) -> Programs:
+    """The single-stream owner of ``device`` (a card without an index is
+    the current one), made at its first use and kept for the process: the
+    programs of every ``StreamDecoder`` there (see Owners above)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    owner = _STREAM_OWNERS.get(dev)
+    if owner is None:
+        owner = _STREAM_OWNERS[dev] = Programs()
+    return owner
 
 
 class ChunkProgram:

@@ -106,11 +106,19 @@ def _counters() -> dict:
     return {k: getattr(_module(m), a) for k, (m, a) in COUNTERS.items()}
 
 
+def _replayed() -> dict:
+    """The package module's :data:`REPLAYED`, the one ``graphs`` adds to:
+    a rank runs this file as ``__main__``, a module of its own."""
+    return importlib.import_module(
+        "lewton_tpu_torch.parallel.launch").REPLAYED
+
+
 def _zero_counters() -> None:
     """The wrappers' counters and :data:`REPLAYED` set to 0."""
     for m, a in COUNTERS.values():
         setattr(_module(m), a, 0)
-    REPLAYED.update(dict.fromkeys(REPLAYED, 0))
+    rep = _replayed()
+    rep.update(dict.fromkeys(rep, 0))
 
 
 def _set_counters(counts: dict) -> None:
@@ -256,15 +264,22 @@ def run_case(mesh, case: dict) -> tuple[dict, dict]:
       ``synthetic_headers(*setup)``, S streams of T packets, chunk i from
       seed + i, the carry chained) through :func:`decode_chunk_sharded`
       (``with_i16``, ``compact_cap``); ``warmup`` runs the chunks once
-      untimed first. Arrays: each chunk's outputs, the final carry.
+      untimed first. With ``programs`` the chunks go through the
+      programs of one ``graphs.Programs`` (captured on a card at tp = 1),
+      and the record gets its ``programs`` stats and the digests and
+      ``eager_maxdiff`` of a run again with ``programs=None``, after the
+      timed run. Arrays: each chunk's outputs, the final carry.
     - ``streams``: the stream in ``file``, once per entry of ``lengths``
       (its first that many audio packets; null for all), through
       ``BatchDecoder(mesh=)`` (``chunk``; the native front-end, on the
       raw header packets), ``decode_streams`` or, with ``i16``,
-      ``decode_streams_i16(compact=)``. Arrays: one per stream.
+      ``decode_streams_i16(compact=)``; the record gets whether its
+      transfer slots' programs are ``graphed`` and their ``programs``
+      stats. Arrays: one per stream.
 
     The launch counts are set to 0 just before the timed run and read just
-    after it. With ``held`` the case runs a second time on the same inputs
+    after it: each kernel form's launches through its wrapper and in
+    replayed programs (``REPLAYED``) together. With ``held`` the case runs a second time on the same inputs
     under :func:`held_kernels`, and its record gets that run's ``held``
     calls and ``launches``, the digests of its outputs and
     ``plain_maxdiff``, the largest difference of any output from the timed
@@ -272,11 +287,13 @@ def run_case(mesh, case: dict) -> tuple[dict, dict]:
     from ..models.decoder import compile_setup, frames_to_device
     from ..ops.windowing import init_window_carry
     from ..testing import synthetic_frames, synthetic_headers
+    from . import graphs
     from .batch import (BatchDecoder, _dp_block, decode_chunk_sharded,
                         mesh_device)
 
     dev = mesh_device(mesh)
     kind = case["kind"]
+    progs = None
     if kind == "chunk":
         cs = compile_setup(*synthetic_headers(*case["setup"]), device=dev)
         S, T, chunks = case["S"], case["T"], case.get("N", 1)
@@ -285,13 +302,18 @@ def run_case(mesh, case: dict) -> tuple[dict, dict]:
             for i in range(chunks)]
         kw = {"with_i16": case.get("with_i16", False),
               "compact_cap": case.get("compact_cap")}
+        progs = graphs.Programs() if case.get("programs") else None
 
-        def run():
+        def run(programs=progs):
             carry = init_window_carry(cs.channels, cs.n1 // 2, S, dev)
             arrays = {}
             for i, fr in enumerate(frs):
-                out, carry = decode_chunk_sharded(mesh, cs, fr, carry, **kw)
-                arrays |= {f"out{i}_{j}": x for j, x in enumerate(out)}
+                out, carry = decode_chunk_sharded(mesh, cs, fr, carry,
+                                                  programs=programs, **kw)
+                # cloned: at dp = 1 a program's outputs are its own
+                # buffers, rewritten by the next chunk
+                arrays |= {f"out{i}_{j}": x.clone() for j, x in
+                           enumerate(out)}
             return arrays | {f"carry_{j}": c for j, c in enumerate(carry)}
     elif kind == "streams":
         headers, pcks = _packets(case["file"])
@@ -317,26 +339,42 @@ def run_case(mesh, case: dict) -> tuple[dict, dict]:
     arrays = run()
     _sync(dev)
     secs = time.perf_counter() - t0
-    rec = {"launches": _counters(), "ms_per_chunk": 1e3 * secs / chunks}
+    rec = {"launches": _ran(), "ms_per_chunk": 1e3 * secs / chunks}
     arrays = _on_host(arrays)
     lo, hi = _dp_block(mesh, S)
     rec |= _digests(arrays, kind, lo, hi)
     if kind == "streams":
         rec["last_stats"] = {k: v for k, v in dec.last_stats.items()
                              if k != "stages"}
+        rec["graphed"] = dec._slots.programs.graphed
+        rec["programs"] = dec._slots.programs.stats()
+    elif progs is not None:
+        rec["programs"] = progs.stats()
+        eager = _on_host(run(None))
+        rec["eager"] = _digests(eager, kind, lo, hi) | {
+            "eager_maxdiff": _maxdiff(arrays, eager)}
     if case.get("held", False):
         held: dict = {}
         _zero_counters()
         with held_kernels(held):
             again = _on_host(run())
-        rec["held"] = {"calls": held, "launches": _counters(),
-                       "plain_maxdiff": max(
-                           (float(np.abs(a.astype(np.float64)
-                                         - again[k]).max())
-                            for k, a in arrays.items() if a.size),
-                           default=0.0)}
+        rec["held"] = {"calls": held, "launches": _ran(),
+                       "plain_maxdiff": _maxdiff(arrays, again)}
         rec["held"] |= _digests(again, kind, lo, hi)
     return rec, arrays
+
+
+def _maxdiff(arrays: dict, again: dict) -> float:
+    """The largest difference of any array of ``again`` from ``arrays``'."""
+    return max((float(np.abs(a.astype(np.float64) - again[k]).max())
+                for k, a in arrays.items() if a.size), default=0.0)
+
+
+def _ran() -> dict:
+    """Launches of each kernel form: through its wrapper and in replayed
+    programs together."""
+    rep = _replayed()
+    return {k: n + rep[k] for k, n in _counters().items()}
 
 
 def _on_host(arrays: dict) -> dict:

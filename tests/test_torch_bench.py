@@ -180,13 +180,16 @@ CHECK_NAMES = ["stereo_44k_q3", "f1_bs8192", "f0_coupled_stereo",
 def test_check_line(run_port):
     """--check on 4 gate streams and every permutation: at most 2 LSB from
     the golden, 0 samples over, under the reference's names; the port's
-    detail adds the stream count and the stream left out of the gate."""
+    detail adds the stream count, the stream left out of the gate and the
+    single-stream programs' stats."""
     port = run_port(["--cpu", "--check"], check_names=CHECK_NAMES)
     assert port["metric"] == "conformance_max_lsb_diff"
     assert port["unit"] == "i16_lsb"
     assert port["value"] <= 2 and port["vs_baseline"] == 1.0
     d = port["detail"]
-    assert set(d) == REF_CHECK_DETAIL | ADDED | {"streams", "left_out"}
+    assert set(d) == REF_CHECK_DETAIL | ADDED | {"streams", "left_out",
+                                                 "stream_programs"}
+    assert d["stream_programs"]["programs"] >= 1
     assert d["samples_over_2lsb"] == 0 and d["streams"] == len(CHECK_NAMES)
     assert set(d["production_permutations"]) == (
         REF_PERMUTATIONS - {"xla_fallback"}) | {"plain"}
