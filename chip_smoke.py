@@ -98,8 +98,13 @@ to libvorbis (0 samples over +/-2 LSB), the tp ranks of each block bit
 for bit, each rank's launches counted; each case run again on the same
 inputs with every kernel launch held against its plain version (bit for
 bit) and the run going on on the plain versions' outputs, equal to the
-kernel run bit for bit; ms per chunk of every rank (``mesh ... timing``
-lines). Then the reader's backends (``backends_phase``). Last, the bench
+kernel run bit for bit; every case through programs (at tp > 1 two
+captured segments a chunk, the tp all-reduce eagerly between their
+replays), bit for bit each rank's eager rerun; ms per chunk of every rank
+through programs and eagerly (``mesh ... timing`` lines). Then the
+reader's backends (``backends_phase``), whose taps line holds
+``decode_frames(with_taps=True)`` through a program bit for bit against
+the eager taps, with a profile of one replay. Last, the bench
 phase (``bench_phase``): the five surfaces of ``python -m
 lewton_tpu_torch.bench`` in-process at the reference's defaults (the
 synthesis headline, ``--check``, ``--e2e``, ``--serve``, ``--frontend``),
@@ -1131,7 +1136,7 @@ def stream_read(data: bytes, dev, fmt: str = "i16") -> tuple:
 
 def frames_key(prog) -> tuple:
     """(T, with_i16) of a single-stream program."""
-    return prog.key[5][0][0][0], prog.key[3]
+    return prog.inputs["mode"].shape[0], prog.key[3]
 
 
 def graphs_stream(dev, card: str) -> dict:
@@ -1869,20 +1874,22 @@ MESH_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
 def mesh_spec(copies: int, tp: int) -> list:
     """The cases every rank runs (parallel/launch.py ``cases``): the
     headline setup's chunks through decode_chunk_sharded (i16, one untimed
-    warm-up run; at tp = 1 through programs, captured in the warm-up, and
-    run again eagerly after the timed run), then ``copies`` copies of each
+    warm-up run) through programs (at tp > 1 two segments a chunk around
+    the tp all-reduce), captured in the warm-up, and run again eagerly
+    (timed) after the timed run; then ``copies`` copies of each
     PERM_STREAMS stream through BatchDecoder(mesh=).decode_streams_i16 on
-    the native front-end (graphed transfer slots at tp = 1); each case
-    ``held``: run again after the timed run, every kernel launch held
-    against its plain version on the same inputs."""
+    the native front-end (its transfer slots' programs), run again under
+    graphs.eager(); each case ``held``: run again after the timed run,
+    every kernel launch held against its plain version on the same
+    inputs."""
     return ([{"name": "chunk", "kind": "chunk", "setup": [2, 8, 11],
               "S": MESH_S, "T": MESH_T, "N": MESH_N, "seed": 3,
               "with_i16": True, "warmup": 1, "held": True,
-              "programs": tp == 1}]
+              "programs": True}]
             + [{"name": f"perm_{n}", "kind": "streams",
                 "file": os.path.join(GATE_DIR, f"{n}.ogg"),
                 "lengths": [None] * copies, "chunk": 64, "i16": True,
-                "held": True}
+                "held": True, "eager": True}
                for n in PERM_STREAMS])
 
 
@@ -1968,29 +1975,31 @@ def mesh_check(label, dp, tp, out_dir, ref: dict, streams: dict) -> dict:
                     != rec0["digest_gathered"]):
                 raise AssertionError(f"{label} {name}: rank {r['rank']} "
                                      "differs from its tp peers")
-    graphed = ""
-    if tp == 1:
-        # the chunks through programs: one captured a rank, bit for bit the
-        # rank's eager run; the batch decoder's slots graphed
-        for r in recs:
-            c = r["cases"]["chunk"]
-            if c["programs"]["captured"] != 1 or \
-                    c["eager"]["eager_maxdiff"] or any(
-                        c["eager"][d] != c[d] for d in ("digest_block",
-                                                        "digest_gathered")) \
-                    or not all(r["cases"][f"perm_{n}"]["graphed"]
-                               for n in PERM_STREAMS):
-                raise AssertionError(f"{label} rank {r['rank']}: programs "
-                                     f"{c['programs']}, eager maxdiff "
-                                     f"{c['eager']['eager_maxdiff']}")
-        c = recs[0]["cases"]["chunk"]["programs"]
-        graphed = (f"; decode_chunk_sharded through programs ({c['captured']}"
-                   f" captured a rank, {c['replays']} replays, pool "
-                   f"{c['pool_mb']} MB) == the rank's eager run bit for "
-                   "bit, BatchDecoder(mesh=) slots graphed ("
-                   + ", ".join(str(recs[0]["cases"][f"perm_{n}"]["programs"]
-                                   ["captured"]) for n in PERM_STREAMS)
-                   + " programs captured)")
+    # every case through programs (at tp > 1 two captured segments a chunk
+    # around the tp all-reduce): the chunks one program a rank, and every
+    # case bit for bit the rank's eager rerun
+    for r in recs:
+        c = r["cases"]["chunk"]
+        for name, case in r["cases"].items():
+            e = case["eager"]
+            if not case["graphed"] or e["eager_maxdiff"] or any(
+                    e[d] != case[d] for d in ("digest_block",
+                                              "digest_gathered")):
+                raise AssertionError(f"{label} {name} rank {r['rank']}: "
+                                     f"programs {case['programs']}, eager "
+                                     f"maxdiff {e['eager_maxdiff']}")
+        if c["programs"]["captured"] != 1:
+            raise AssertionError(f"{label} rank {r['rank']}: chunk programs "
+                                 f"{c['programs']}")
+    c = recs[0]["cases"]["chunk"]["programs"]
+    graphed = (f"; decode_chunk_sharded through programs ({c['captured']} "
+               f"captured a rank{' in two segments a chunk' if tp > 1 else ''}"
+               f", {c['replays']} replays, pool {c['pool_mb']} MB) == the "
+               "rank's eager run bit for bit; BatchDecoder(mesh=) through "
+               "programs (" + ", ".join(
+                   str(recs[0]["cases"][f"perm_{n}"]["programs"]["captured"])
+                   for n in PERM_STREAMS)
+               + " captured) == its run under graphs.eager() bit for bit")
     held = {}
     plain_diff = 0.0
     for r in recs:
@@ -2054,7 +2063,9 @@ def mesh_check(label, dp, tp, out_dir, ref: dict, streams: dict) -> dict:
                     f"{label} perm {name} rank {rr['rank']}: launches "
                     f"{rr['cases'][f'perm_{name}']['launches']}, expected "
                     f"{lw}")
-    ms = [r["cases"]["chunk"]["ms_per_chunk"] for r in recs]
+    ms = {"graph": [r["cases"]["chunk"]["ms_per_chunk"] for r in recs],
+          "eager": [r["cases"]["chunk"]["eager"]["ms_per_chunk"]
+                    for r in recs]}
     print(f"mesh {label}: decode_chunk_sharded S={MESH_S} T={MESH_T} "
           f"N={MESH_N} i16: {worst} LSB from the unsharded decode, carry "
           f"|d| {dpwr:.3g} <= {ref['bound']:.3g}, tp peers bit for bit; "
@@ -2109,10 +2120,11 @@ def mesh_phase(dev, card: str) -> dict:
         shared = ("ranks sharing one card" if backend == "gloo"
                   else "one rank per card")
         print(f"mesh {label} timing ({shared}; overhead, not scaling): "
-              f"decode_chunk_sharded ms/chunk per rank "
-              f"{[round(m, 4) for m in res['ms']]}, unsharded in this "
-              f"process {ref['ms']:.4f}; ranks' run {secs:.1f} s | card: "
-              f"{card}")
+              f"decode_chunk_sharded ms/chunk per rank through programs "
+              f"{[round(m, 4) for m in res['ms']['graph']]}, eager "
+              f"{[round(m, 4) for m in res['ms']['eager']]}, unsharded in "
+              f"this process {ref['ms']:.4f}; ranks' run {secs:.1f} s | "
+              f"card: {card}")
         for fn in os.listdir(out):
             os.remove(os.path.join(out, fn))
     if n < 2:
@@ -2320,7 +2332,12 @@ def capi_check(streams: dict, card: str) -> dict:
 
 def taps_check(streams: dict, dev, card: str) -> dict:
     """The numpy backend's debug taps on TAP_PACKETS packets of TAP_STREAM
-    against decode_frames(with_taps=True) on the card."""
+    against decode_frames(with_taps=True) on the card; the same call
+    through the device's single-stream program (the reference jits it with
+    ``with_taps`` static), its capture and a replay each bit for bit the
+    eager taps, PCM, out_len and carry, a profile of one replay (one
+    ``cudaGraphLaunch``, no ``cudaLaunchKernel``) and its host and wall ms
+    against ``graphs.eager()`` (``graphs timing taps``)."""
     data = streams[TAP_STREAM][0]
     with debug.taps() as t:
         r = OggStreamReader(data, backend="numpy")
@@ -2334,7 +2351,23 @@ def taps_check(streams: dict, dev, card: str) -> dict:
     fr = frames_to_device(pack_frames(cs, plans, len(pcks)), dev)
     carry = tuple(c[0] for c in init_window_carry(cs.channels, cs.n1 // 2, 1,
                                                   dev))
-    (_, _, taps), _ = decode_frames(cs, fr, carry, with_taps=True)
+    eager = decode_frames(cs, fr, carry, with_taps=True)
+    (_, _, taps), _ = eager
+    owner = graphs.stream_programs(dev)
+    for call in ("capture", "replay"):
+        (pcm, lens, ptaps), pcarry = decode_frames(
+            cs, fr, carry, with_taps=True, programs=owner)
+        same_bits([pcm, lens, *ptaps.values(), *pcarry],
+                  [*eager[0][:2], *taps.values(), *eager[1]],
+                  f"taps program ({call})")
+    prog = decoder.frames_program(owner, cs, fr, carry, with_taps=True)
+    if prog.graph is None or prog.replays != 1:
+        raise AssertionError(f"taps program: captured {prog.graph is not None}"
+                             f", {prog.replays} replays")
+    profile = replay_profile("taps", prog, 1, card)
+    if not profile:
+        raise AssertionError("taps program: no profile of its replay")
+    graph_ab("taps", prog, fr, carry, 1, card)
     err = {}
     for k in debug.TAP_NAMES:
         got = taps[k].cpu().numpy()
@@ -2355,8 +2388,10 @@ def taps_check(streams: dict, dev, card: str) -> dict:
     print(f"backends taps ({TAP_STREAM}, {len(pcks)} packets, numpy "
           f"backend vs decode_frames(with_taps=True) on the card): "
           + ", ".join(f"{k} {v:.3g}" for k, v in err.items())
-          + f" (tolerances {TAP_ATOL} / {TAP_ATOL_POST} post-MDCT) | card: "
-          f"{card}")
+          + f" (tolerances {TAP_ATOL} / {TAP_ATOL_POST} post-MDCT); through "
+          f"a program (capture {prog.capture_s:.3f} s, pool "
+          f"{prog.pool_mb:.1f} MB): the capture and a replay bit for bit the "
+          f"eager taps, PCM and carry | card: {card}")
     return err
 
 

@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from ..audio import PacketPlan, decode_packet_entropy
+from ..debug import TAP_NAMES
 from ..errors import AudioBadFormat, AudioIsHeader, VorbisError
 from ..header import IdentHeader, SetupHeader
 from ..native import NativeStream, PacketSpans
@@ -71,7 +72,8 @@ from ..tables import bark_cos_omega, imdct_matrix, window_slope
 __all__ = ["CompiledSetup", "compile_setup", "from_jax_setup",
            "floor_kernel_inputs", "floor_stage", "floor_kernel_ok",
            "synthesis_route", "precompute_brackets", "synthesize_spectra_tapped",
-           "synthesize_audio_tapped", "synthesize_audio", "finish_stream",
+           "synthesize_audio_tapped", "synthesize_audio", "synthesize_local",
+           "finish_stream",
            "split_ok", "decode_frames_core", "decode_frames",
            "frames_program", "routing_flags",
            "USE_FUSED_SYNTH_KERNEL", "DEFAULT_CHUNK", "pack_frames",
@@ -463,6 +465,21 @@ def synthesize_audio(cs: CompiledSetup, fr: dict, imdct=imdct_batch):
     return audio, bf
 
 
+def synthesize_local(cs: CompiledSetup, fr: dict, local, plain: bool = False):
+    """The part of a chunk before the collective of a caller's IMDCT that
+    holds one (the tp IMDCT's all-reduce, ``parallel.batch``): the generic
+    stages of frames [S, T, ...], as :func:`synthesize_audio` routes a
+    caller's IMDCT, then ``local`` (the transform up to its collective,
+    :func:`imdct_batch`'s signature). Returns (the local audio, blockflag
+    [S*T]). The collective on that audio, then :func:`finish_stream`, end
+    the chunk: the ops of :func:`decode_frames_core` with that IMDCT, in
+    its order, with the collective between two captured segments
+    (``parallel.graphs.SegmentedProgram``)."""
+    route = synthesis_route(cs, fr, allow_fused=False)
+    spectra, bf, _ = synthesize_spectra_tapped(cs, fr, route, plain)
+    return local(spectra, bf, cs.imdct_m0, cs.imdct_m1), bf
+
+
 def finish_stream(cs: CompiledSetup, audio, bf, fr: dict, carry,
                   with_i16: bool = False, compact_cap: int | None = None,
                   plain: bool = False, out=None):
@@ -603,27 +620,34 @@ def routing_flags() -> tuple:
 
 
 def frames_program(programs, cs: CompiledSetup, fr: dict, carry,
-                   with_i16: bool = False, compact_cap: int | None = None):
+                   with_i16: bool = False, compact_cap: int | None = None,
+                   with_taps: bool = False):
     """The program of ``programs`` (a ``parallel.graphs.Programs``) that
     decodes one chunk of one stream, frames of ``fr``'s layout (leaves
     [T, ...]) from ``carry``'s layout, made at its first use: the
     counterpart of the reference's jitted ``decode_frames``. Keyed as that
     jit is: the setup's static fields and its tables' signature (not its
-    identity), ``with_i16``, ``compact_cap``, the frames' signature and the
-    routing flags. The setup's tables are loaded into the owner's static
-    copy of their layout (``Programs.static_tables``, a copy only when the
-    setup changes), and the program reads them there, so every setup of
-    one geometry shares it. Call it as ``prog(fr, carry)`` -> ((out,
-    out_len) or (pcm, total, out_len), carry); ``fr`` may lie on the host,
-    and is copied straight into the program's static inputs."""
+    identity), ``with_i16``, ``compact_cap``, ``with_taps``, the frames'
+    signature and the routing flags. The setup's tables are loaded into
+    the owner's static copy of their layout (``Programs.static_tables``, a
+    copy only when the setup changes), and the program reads them there, so
+    every setup of one geometry shares it. Call it as ``prog(fr, carry)``
+    -> ((out, out_len), (pcm, total, out_len) or, with ``with_taps``, (f32
+    out, out_len, taps)), carry); ``fr`` may lie on the host, and is copied
+    straight into the program's static inputs. With ``with_taps`` the
+    program takes the eager taps route (the generic stages, the f32
+    overlap-add; ``with_i16`` and ``compact_cap`` not read, as there), and
+    its taps are static buffers of the eager taps' shapes."""
     from ..parallel import graphs
 
+    if with_taps:
+        with_i16, compact_cap = False, None
     tables = {k: getattr(cs, k) for k in CompiledSetup._leaf_names}
     static = programs.static_tables(tables, cs)
     key = ("frames",
            tuple(getattr(cs, k) for k in CompiledSetup._static_names),
            graphs.signature(tables), bool(with_i16), compact_cap,
-           graphs.signature(fr), routing_flags())
+           bool(with_taps), graphs.signature(fr), routing_flags())
 
     def make():
         scs = dataclasses.replace(cs, **static)
@@ -640,13 +664,20 @@ def frames_program(programs, cs: CompiledSetup, fr: dict, carry,
         else:
             outs = (torch.empty((T, C, outw), dtype=torch.float32,
                                 device=dev), lens)
+        if with_taps:
+            outs += ({k: torch.empty((T, C, cs.n1 if k == "post_mdct"
+                                      else cs.w_eff), dtype=torch.float32,
+                                     device=dev) for k in TAP_NAMES},)
 
         def body(inputs, c, o):
             res, c = _decode_one(scs, inputs, c, with_i16, compact_cap,
-                                 out=None if compact_cap is not None
+                                 with_taps, out=None if compact_cap is not None
                                  else o[0])
             for dst, src in zip(o, res):
-                if not graphs._same(dst, src):  # out_len; compact's
+                if isinstance(dst, dict):  # the taps
+                    for k, t in dst.items():
+                        t.copy_(src[k])
+                elif not graphs._same(dst, src):  # out_len; compact's
                     dst.copy_(src)
             return c
         return graphs.ChunkProgram(programs, body, fr, carry, outs, key)
@@ -663,20 +694,17 @@ def decode_frames(cs: CompiledSetup, fr: dict, carry, with_i16: bool = False,
     With ``programs`` (a ``parallel.graphs.Programs``) the chunk runs as a
     program of that owner (:func:`frames_program`): captured as a CUDA
     graph at its first call on a card and replayed, one dispatch a chunk,
-    as the reference's jitted ``decode_frames``. Its outputs are then the
-    program's own buffers, valid until its next run, and its carry the
-    owner's, valid until the next run of any of its programs with that
-    carry layout (``graphs``' lifetime); ``fr`` may lie on the host.
-    ``with_taps`` is taken eagerly only (``debug.taps``). Without
-    ``programs`` the chunk is enqueued one op at a time into fresh
-    outputs."""
+    as the reference's jitted ``decode_frames`` (``with_taps`` among its
+    static arguments: the taps come out of a captured program too). Its
+    outputs (the taps among them) are then the program's own buffers,
+    valid until its next run, and its carry the owner's, valid until the
+    next run of any of its programs with that carry layout (``graphs``'
+    lifetime); ``fr`` may lie on the host. Without ``programs`` the chunk
+    is enqueued one op at a time into fresh outputs."""
     if programs is None:
         return _decode_one(cs, fr, carry, with_i16, compact_cap, with_taps)
-    if with_taps:
-        raise ValueError("a program takes no with_taps: the taps run "
-                         "eagerly (programs=None)")
-    return frames_program(programs, cs, fr, carry, with_i16,
-                          compact_cap)(fr, carry)
+    return frames_program(programs, cs, fr, carry, with_i16, compact_cap,
+                          with_taps)(fr, carry)
 
 
 # --------------------------------------------------------------------------- #

@@ -36,11 +36,13 @@ contraction axis, and an all-reduce over the tp group rebuilds each block
 (:func:`_imdct_tp`). :func:`decode_chunk_sharded` returns the global
 outputs on every rank (an all-gather over dp); ``BatchDecoder(mesh=)``
 entropy-decodes only the rank's block and gathers the host PCM at the end.
-``parallel/launch.py`` starts the ranks. At tp = 1 the mesh's chunks run
-as programs like any other (``decode_chunk_sharded(programs=)``, and
+``parallel/launch.py`` starts the ranks. The mesh's chunks run as programs
+like any other (``decode_chunk_sharded(programs=)``, and
 ``BatchDecoder(mesh=)``'s transfer slots), the all-gather over dp outside
-them; at tp > 1 they run eagerly, as the tp all-reduce sits inside the
-chunk and gloo's collectives cannot be captured.
+them. At tp > 1 the tp all-reduce sits inside the chunk, and gloo's
+collectives cannot be captured: a chunk runs as two captured segments
+around it (``graphs.SegmentedProgram``, :func:`_tp_steps`), the
+all-reduce eagerly between their replays.
 """
 
 from __future__ import annotations
@@ -55,8 +57,9 @@ import torch
 import torch.distributed as dist
 
 from ..models.decoder import (CompiledSetup, StreamDecoder,
-                              decode_frames_core, frames_to_device,
-                              predict_out_lens, routing_flags)
+                              decode_frames_core, finish_stream,
+                              frames_to_device, predict_out_lens,
+                              routing_flags, synthesize_local)
 from ..ops.imdct import imdct_batch
 from ..ops.windowing import init_window_carry
 from . import graphs
@@ -117,25 +120,84 @@ def _scan_into(cs: CompiledSetup, frs: dict, carry, outs: tuple,
     return carry
 
 
+def _tp_steps(cs: CompiledSetup, frames, N: int, S: int, T: int, carry,
+              outs: tuple, with_i16: bool, compact_cap, plain: bool, imdct):
+    """The steps of a ``graphs.SegmentedProgram`` that decodes N chunks
+    through ``imdct``, a transform with a collective (:class:`_TPImdct`),
+    into ``outs`` (:func:`_scan_outputs`' layout) from the static
+    ``carry``: per chunk, the segment before the collective
+    (``synthesize_local``, its audio and blockflag copied into static
+    buffers), the collective on that audio, and the segment after it
+    (``finish_stream`` into the chunk's outputs, the new carry copied into
+    ``carry``); the ops of :func:`_scan_into` with that ``imdct``, in its
+    order. ``frames(i)``: chunk i's frames, made from the static inputs
+    inside each segment."""
+    rows, dev = S * T, cs.device
+    mid = (torch.empty((rows, cs.channels, cs.n1), dtype=torch.float32,
+                       device=dev),
+           torch.empty(rows, dtype=cs.mode_blockflag.dtype, device=dev))
+
+    def pre(i):
+        audio, bf = synthesize_local(cs, frames(i), imdct.local, plain)
+        mid[0].copy_(audio)
+        mid[1].copy_(bf)
+
+    def post(i):
+        fr = frames(i)
+        if compact_cap is None:
+            (_, out_len), new = finish_stream(cs, *mid, fr, carry, with_i16,
+                                              plain=plain, out=outs[0][i])
+        else:
+            (outs[0][i], outs[1][i], out_len), new = finish_stream(
+                cs, *mid, fr, carry, compact_cap=compact_cap, plain=plain)
+        outs[-1][i] = out_len
+        for st, c in zip(carry, new):
+            st.copy_(c)
+    return [step for i in range(N) for step in (
+        (True, functools.partial(pre, i)),
+        (False, functools.partial(imdct.collective, mid[0])),
+        (True, functools.partial(post, i)))]
+
+
+def _program(programs: graphs.Programs, cs: CompiledSetup, frames, inputs,
+             carry, outs: tuple, with_i16: bool, compact_cap, plain: bool,
+             imdct, key):
+    """The program of ``key`` over ``inputs`` (its static inputs' layout)
+    that decodes the chunks ``frames(static inputs)`` (leaves [N, S, T,
+    ...]) into ``outs``: one graph (:func:`_scan_into`), or, when
+    ``imdct`` holds a collective, two segments a chunk around it
+    (:func:`_tp_steps`)."""
+    if getattr(imdct, "collective", None) is None:
+        def body(ins, c, o):
+            return _scan_into(cs, frames(ins), c, o, with_i16, compact_cap,
+                              plain, imdct)
+        return graphs.ChunkProgram(programs, body, inputs, carry, outs, key)
+    N, S, T = outs[-1].shape
+
+    def steps(ins, c, o):
+        return _tp_steps(cs, lambda i: _chunk(frames(ins), i), N, S, T, c,
+                         o, with_i16, compact_cap, plain, imdct)
+    return graphs.SegmentedProgram(programs, steps, inputs, carry, outs, key)
+
+
 def scan_program(programs: graphs.Programs, cs: CompiledSetup, frs: dict,
                  carry, with_i16: bool = False, compact_cap=None,
                  plain: bool = False, imdct=imdct_batch):
     """The program of ``programs`` that decodes N chunks of frames with
     ``frs``' layout (leaves [N, S, T, ...]) from ``carry``'s layout, made
     at its first use: the counterpart of the reference's jitted
-    ``decode_chunks_scan``, keyed as ``graphs`` says. Call it as
-    ``prog(frs, carry)`` -> ((out, lens) or (pcm, totals, lens), carry)."""
+    ``decode_chunks_scan``, keyed as ``graphs`` says (a mesh's tp
+    transform by the tp size and the rank's place in its group). Call it
+    as ``prog(frs, carry)`` -> ((out, lens) or (pcm, totals, lens),
+    carry)."""
     key = ("scan", id(cs), bool(with_i16), compact_cap, plain, imdct,
            graphs.signature(frs), routing_flags())
 
     def make():
         N, S, T = frs["mode"].shape
         outs = _scan_outputs(cs, N, S, T, with_i16, compact_cap, cs.device)
-
-        def body(inputs, c, outputs):
-            return _scan_into(cs, inputs, c, outputs, with_i16, compact_cap,
-                              plain, imdct)
-        return graphs.ChunkProgram(programs, body, frs, carry, outs, key)
+        return _program(programs, cs, lambda ins: ins, frs, carry, outs,
+                        with_i16, compact_cap, plain, imdct, key)
     return programs.get(key, make)
 
 
@@ -258,26 +320,10 @@ def _check_mesh(mesh) -> None:
                         f"(make_mesh), not {type(mesh).__name__}")
 
 
-def _imdct_tp(spectra, bf, m0, m1, group=None, ntp: int = 1):
-    """Tensor-parallel IMDCT (reference ``_imdct_tp``): the signature of
-    :func:`imdct_batch` once ``group`` (the mesh's tp group) and ``ntp``
-    (its size) are bound, so it plugs into ``decode_frames_core(imdct=)``.
-
-    The contraction axis (the spectral width, rows of m0/m1) is zero-padded
-    to a multiple of ntp and split into ntp slices; this rank multiplies
-    its slice of the spectra by its rows of each matrix (fp32
-    ``torch.matmul``, TF32 off), selects long/short per blockflag with the
-    short output padded to n1, and an all-reduce (sum) over ``group``
-    rebuilds the block. Zero rows add nothing, so padding (never a
-    floor-divided slice, which drops the tail rows) keeps every term: the
-    same sum as :func:`imdct_batch` in another order. Every rank of the
-    group must end with the same bits, or the ranks of a dp block drift
-    apart chunk by chunk: tests/test_torch_parallel.py and chip_smoke.py
-    hold them bit for bit. The port makes no host copy here: gloo reduces a
-    CUDA tensor through host memory inside ProcessGroupGloo; NCCL keeps it
-    on the cards."""
-    ti = dist.get_rank(group) if ntp > 1 else 0
-
+def _imdct_tp_local(spectra, bf, m0, m1, ti: int, ntp: int):
+    """Rank ``ti``'s part of the tensor-parallel IMDCT of :func:`_imdct_tp`
+    over ``ntp`` ranks: its slice of the contraction, the long/short
+    select, no all-reduce."""
     def part(mat, spec):
         w = mat.shape[0]
         wk = -(-w // ntp)
@@ -293,20 +339,72 @@ def _imdct_tp(spectra, bf, m0, m1, group=None, ntp: int = 1):
     if n0 != n1:
         short = torch.nn.functional.pad(part(m0, spectra), (0, n1 - n0))
         out = torch.where((bf == 1)[:, None, None], out, short)
+    return out
+
+
+def _imdct_tp(spectra, bf, m0, m1, group=None, ntp: int = 1):
+    """Tensor-parallel IMDCT (reference ``_imdct_tp``): the signature of
+    :func:`imdct_batch` once ``group`` (the mesh's tp group) and ``ntp``
+    (its size) are bound, so it plugs into ``decode_frames_core(imdct=)``.
+
+    The contraction axis (the spectral width, rows of m0/m1) is zero-padded
+    to a multiple of ntp and split into ntp slices; this rank multiplies
+    its slice of the spectra by its rows of each matrix (fp32
+    ``torch.matmul``, TF32 off), selects long/short per blockflag with the
+    short output padded to n1 (:func:`_imdct_tp_local`), and an all-reduce
+    (sum) over ``group`` rebuilds the block. Zero rows add nothing, so
+    padding (never a floor-divided slice, which drops the tail rows) keeps
+    every term: the same sum as :func:`imdct_batch` in another order. Every
+    rank of the group must end with the same bits, or the ranks of a dp
+    block drift apart chunk by chunk: tests/test_torch_parallel.py and
+    chip_smoke.py hold them bit for bit. The port makes no host copy here:
+    gloo reduces a CUDA tensor through host memory inside
+    ProcessGroupGloo; NCCL keeps it on the cards."""
+    ti = dist.get_rank(group) if ntp > 1 else 0
+    out = _imdct_tp_local(spectra, bf, m0, m1, ti, ntp)
     if ntp > 1:
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     return out
 
 
+class _TPImdct:
+    """A rank's tp IMDCT (:func:`_imdct_tp` on its mesh's tp group), split
+    where its all-reduce sits: ``local`` (:func:`_imdct_tp_local`) and
+    ``collective`` (the all-reduce, in place), so that a chunk program
+    captures the work on either side of it (:func:`_tp_steps`). Calling it
+    runs both. Programs key it by the tp size and the rank's place in its
+    tp group (and the group)."""
+
+    def __init__(self, group, ntp: int):
+        self.group, self.ntp, self.ti = group, ntp, dist.get_rank(group)
+
+    def __call__(self, spectra, bf, m0, m1):
+        return _imdct_tp(spectra, bf, m0, m1, self.group, self.ntp)
+
+    def local(self, spectra, bf, m0, m1):
+        return _imdct_tp_local(spectra, bf, m0, m1, self.ti, self.ntp)
+
+    def collective(self, audio) -> None:
+        dist.all_reduce(audio, op=dist.ReduceOp.SUM, group=self.group)
+
+    def _key(self) -> tuple:
+        return self.ntp, self.ti, self.group.group_name
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, _TPImdct) and self._key() == other._key()
+
+    def __hash__(self) -> int:
+        return hash(self._key())
+
+
 def _mesh_imdct(mesh):
     """The IMDCT a rank of ``mesh`` runs: the stock one at tp = 1 (as the
-    reference passes no transform there), else :func:`_imdct_tp` on the
+    reference passes no transform there), else :class:`_TPImdct` on the
     mesh's tp group."""
     ntp = mesh["tp"].size()
     if ntp == 1:
         return imdct_batch
-    return functools.partial(_imdct_tp, group=mesh["tp"].get_group(),
-                             ntp=ntp)
+    return _TPImdct(mesh["tp"].get_group(), ntp)
 
 
 def _dp_block(mesh, S: int) -> tuple[int, int]:
@@ -350,16 +448,15 @@ def decode_chunk_sharded(mesh, cs: CompiledSetup, fr: dict, carry,
     With ``programs`` (the counterpart of the jit over the reference's
     ``shard_map``) the block runs as a one-chunk program of that owner
     (:func:`decode_chunk_batch`), then the all-gather over dp runs outside
-    it: at tp = 1 the block holds no collective, and on a card its program
-    is captured and replayed. At dp = 1 the outputs and carry returned are
-    then the program's and the owner's (``graphs``' lifetime); at dp > 1
-    the gathered tensors are fresh. At tp > 1 the block is decoded eagerly
-    whatever ``programs`` says: the tp all-reduce sits inside the chunk,
-    and gloo's collectives cannot be captured."""
+    it. On a card the program is captured and replayed: at tp = 1 as one
+    graph; at tp > 1, where the tp all-reduce sits inside the chunk and
+    gloo's collectives cannot be captured, as two graphs with the
+    all-reduce between their replays (:func:`_tp_steps`), keyed by the tp
+    size and the rank's place in its tp group. At dp = 1 the outputs and
+    carry returned are then the program's and the owner's (``graphs``'
+    lifetime); at dp > 1 the gathered tensors are fresh."""
     lo, hi = _dp_block(mesh, fr["mode"].shape[0])
     imdct = _mesh_imdct(mesh)
-    if imdct is not imdct_batch:
-        programs = None
 
     def blk(v):
         return tuple(b[lo:hi] for b in v) if isinstance(v, tuple) \
@@ -418,19 +515,14 @@ def unpack_frame_buffers(residue, bbuf, ibuf, fbuf, shapes) -> dict:
     return fr
 
 
-def _packed_into(cs: CompiledSetup, inputs: tuple, shapes, carry, outs,
-                 compact_cap=None, imdct=imdct_batch):
-    """Decode the packed buffers ``inputs`` (residue, bbuf, ibuf, fbuf),
-    re-viewed as frames through ``shapes`` (leaves [N, S, T, ...], or one
-    chunk's [S, T, ...], a chunk axis of 1), into ``outs``
-    (:func:`_scan_outputs`' layout): device-compacted at ``compact_cap``
-    samples a stream, else the i16 kernel path's padded chunk. Returns the
-    final carry."""
+def _unpacked(inputs: tuple, shapes) -> dict:
+    """The packed buffers ``inputs`` (residue, bbuf, ibuf, fbuf) re-viewed
+    as frames through ``shapes``: leaves [N, S, T, ...] (one chunk's
+    [S, T, ...] given a chunk axis of 1)."""
     fr = unpack_frame_buffers(*inputs, shapes)
     if fr["mode"].dim() == 2:
         fr = {k: v[None] for k, v in fr.items()}
-    return _scan_into(cs, fr, carry, outs, with_i16=compact_cap is None,
-                      compact_cap=compact_cap, imdct=imdct)
+    return fr
 
 
 def _packed_outputs(cs: CompiledSetup, shapes, compact_cap, device) -> tuple:
@@ -445,14 +537,16 @@ def _packed_outputs(cs: CompiledSetup, shapes, compact_cap, device) -> tuple:
 def packed_program(programs: graphs.Programs, cs: CompiledSetup,
                    inputs: tuple, shapes, carry, compact_cap=None,
                    imdct=imdct_batch, outputs=None, key: tuple = ()):
-    """The program of ``programs`` that runs :func:`_packed_into` on packed
-    buffers of ``inputs``' layout (tensors or arrays) from ``carry``'s
-    layout, made at its first use: the counterpart of the reference's
-    jitted packed programs. ``outputs``: a function that returns the
-    buffers it writes (default: its own, :func:`_scan_outputs`); ``key``:
-    the caller's part of its key (``TransferSlots``: the slot and N). Call
-    it as ``prog(inputs, carry)`` -> ((out, lens) or (pcm, totals, lens),
-    carry), the outputs with a chunk axis."""
+    """The program of ``programs`` that decodes packed buffers of
+    ``inputs``' layout (tensors or arrays; :func:`_unpacked`) from
+    ``carry``'s layout, made at its first use: device-compacted at
+    ``compact_cap`` samples a stream, else the i16 kernel path's padded
+    chunk; the counterpart of the reference's jitted packed programs.
+    ``outputs``: a function that returns the buffers it writes (default:
+    its own, :func:`_scan_outputs`); ``key``: the caller's part of its key
+    (``TransferSlots``: the slot and N). Call it as ``prog(inputs, carry)``
+    -> ((out, lens) or (pcm, totals, lens), carry), the outputs with a
+    chunk axis."""
     inputs = tuple(torch.from_numpy(a) if isinstance(a, np.ndarray) else a
                    for a in inputs)
     full = ("packed", id(cs), compact_cap, imdct, shapes,
@@ -461,10 +555,9 @@ def packed_program(programs: graphs.Programs, cs: CompiledSetup,
     def make():
         outs = (outputs() if outputs is not None else
                 _packed_outputs(cs, shapes, compact_cap, cs.device))
-
-        def body(ins, c, o):
-            return _packed_into(cs, ins, shapes, c, o, compact_cap, imdct)
-        return graphs.ChunkProgram(programs, body, inputs, carry, outs, full)
+        return _program(programs, cs, lambda ins: _unpacked(ins, shapes),
+                        inputs, carry, outs, compact_cap is None, compact_cap,
+                        False, imdct, full)
     return programs.get(full, make)
 
 
@@ -476,8 +569,8 @@ def _packed(programs, cs, inputs: tuple, shapes, carry, compact_cap=None,
         return packed_program(programs, cs, inputs, shapes, carry,
                               compact_cap, imdct)(inputs, carry)
     outs = _packed_outputs(cs, shapes, compact_cap, inputs[0].device)
-    return outs, _packed_into(cs, inputs, shapes, carry, outs, compact_cap,
-                              imdct)
+    return outs, _scan_into(cs, _unpacked(inputs, shapes), carry, outs,
+                            compact_cap is None, compact_cap, imdct=imdct)
 
 
 def decode_chunk_batch_packed(cs, residue, bbuf, ibuf, fbuf, shapes, carry,
@@ -564,8 +657,8 @@ class TransferSlots:
     (slot, N), pinned host-to-device buffers with an event after each
     slot's last copies, pinned device-to-host buffers copied into on a
     side stream with an event per copy, and the decode programs
-    (``programs``, a ``graphs.Programs``; ``graphed=False`` runs them
-    eagerly): one per (slot, N, output length, layout). The programs of one
+    (``programs``, a ``graphs.Programs``): one per (slot, N, output
+    length, layout). The programs of one
     slot and N write their PCM into one device buffer, sized for the
     largest output length a chunk can need, which no program of another
     slot writes: a group never rewrites PCM that the other slot's copy out
@@ -576,7 +669,7 @@ class TransferSlots:
     read or wrote them. On the CPU the device works synchronously, so the
     arrays go in and out as they are."""
 
-    def __init__(self, sd: StreamDecoder, graphed: bool = True):
+    def __init__(self, sd: StreamDecoder):
         self.sd = sd
         self.device = sd.device
         self.pinned: dict = {}  # (slot, array index) -> pinned bytes
@@ -585,7 +678,7 @@ class TransferSlots:
         self.pinned_d2h: dict = {}  # slot -> pinned bytes of the PCM
         self.d2h_done: dict = {}  # slot -> event after its last copy
         self.d2h_stream = None
-        self.programs = graphs.Programs(graphed)
+        self.programs = graphs.Programs()
         self.pcm: dict = {}  # (slot, N, S, T, route) -> device PCM buffer
 
     def put(self, slot: int, arrays, into: tuple) -> tuple:
@@ -790,11 +883,9 @@ class BatchDecoder:
         #: (and the front-end no longer overlaps the device)
         self.stage_sync = False
         self._bf_host = self.cs.mode_blockflag.cpu().numpy()
-        # at tp > 1 the programs run eagerly: the tp all-reduce sits inside
-        # the chunk, and gloo's collectives cannot be captured; at tp = 1 a
-        # chunk holds no collective (the dp gather runs after the decode)
-        self._slots = TransferSlots(
-            self._sd, graphed=mesh is None or mesh["tp"].size() == 1)
+        # a mesh's groups run as programs too: at tp > 1 two segments a
+        # chunk around the tp all-reduce; the dp gather runs after them
+        self._slots = TransferSlots(self._sd)
         #: accounting of the last decode_streams* call: bytes shipped
         #: host->device and device->host (with a mesh, this rank's), the
         #: residue transport, and the host seconds per stage

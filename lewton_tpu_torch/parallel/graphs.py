@@ -62,15 +62,22 @@ returns into its own tensors before any other run of that owner (the
 carry rule; see the lifetime above). An owner's programs run on one
 thread.
 
+**Collectives.** A mesh's chunk at tp > 1 all-reduces the IMDCT's partial
+products over the tp group inside the chunk (the reference's ``psum``
+inside its jitted ``shard_map``), and gloo's collectives cannot be
+captured. :class:`SegmentedProgram` captures the work on either side of
+each collective as a graph of its own and runs the collective eagerly
+between their replays, in stream order, on a static buffer. (NCCL at one
+rank a card could put the all-reduce inside one graph; that waits for a
+machine with two or more cards.)
+
 **No fallback.** On a card, a capture that fails raises
 :class:`CaptureError` naming the op that broke it; nothing runs eagerly in
 its place. A program runs its body eagerly, on the same static buffers, in
 these cases only: on the CPU (which the caller asks for, as the tests do);
-inside :func:`eager` (the counterpart of ``jax.disable_jit()``); whenever a
-kernel wrapper is not the package's own (``launch.kernels_in_use``); and
-in an owner made with ``graphed=False``, which is a mesh's at tp > 1,
-whose tensor-parallel IMDCT all-reduces inside the chunk (gloo's
-collectives cannot be captured).
+inside :func:`eager` (the counterpart of ``jax.disable_jit()``); and
+whenever a kernel wrapper is not the package's own
+(``launch.kernels_in_use``).
 
 Where capture is likely to break, and what this module does about it:
 
@@ -110,8 +117,8 @@ import torch
 
 from . import launch
 
-__all__ = ["ChunkProgram", "Programs", "CaptureError", "eager", "signature",
-           "stream_programs"]
+__all__ = ["ChunkProgram", "SegmentedProgram", "Programs", "CaptureError",
+           "eager", "signature", "stream_programs"]
 
 _EAGER_DEPTH = 0
 #: the single-stream owner of each device (:func:`stream_programs`)
@@ -211,12 +218,9 @@ class Programs:
     run one at a time on the owner's stream, which is what makes one pool
     and one set of static inputs and carry a layout safe to share: nothing
     of one program is live in the pool while another runs, and each run
-    loads its inputs and carry just before it. ``graphed=False``: its
-    programs always run eagerly (an owner whose body holds
-    collectives)."""
+    loads its inputs and carry just before it."""
 
-    def __init__(self, graphed: bool = True):
-        self.graphed = graphed
+    def __init__(self):
         self.programs: dict = {}
         self._carries: dict = {}
         self._inputs: dict = {}
@@ -326,7 +330,12 @@ class ChunkProgram:
         self.inputs = owner.static_inputs(inputs_like, self.device)
         self.carry = owner.static_carry(carry_like)
         self.outputs = outputs
-        self.graph = None
+        #: the body as (captured, fn) steps: one segment here;
+        #: :class:`SegmentedProgram`'s collectives are steps not captured
+        self.steps = [(True, self._body)]
+        #: per step, after the capture: (its graph, the launch counters'
+        #: change during its capture), None for a step not captured
+        self.graph: list | None = None
         #: counter deltas of one run (launch.COUNTERS' names), from the
         #: capture
         self.launches: dict = {}
@@ -336,17 +345,20 @@ class ChunkProgram:
         self.capture_s: float | None = None
         self.pool_mb: float | None = None  # the pool's growth at capture
 
-    def _run(self) -> None:
+    def _body(self) -> None:
         new = self.body(self.inputs, self.carry, self.outputs)
         for st, c in zip(self.carry, new):
             st.copy_(c)
 
+    def _run(self) -> None:
+        for _, fn in self.steps:
+            fn()
+
     def graphed(self) -> bool:
         """Whether this call replays (or captures): on a card, outside
-        :func:`eager`, in a graphed owner, with the kernels' own
-        wrappers."""
-        return (self.device.type == "cuda" and self.owner.graphed
-                and not _EAGER_DEPTH and launch.kernels_in_use())
+        :func:`eager`, with the kernels' own wrappers."""
+        return (self.device.type == "cuda" and not _EAGER_DEPTH
+                and launch.kernels_in_use())
 
     def __call__(self, inputs, carry):
         t0 = time.perf_counter()
@@ -356,12 +368,13 @@ class ChunkProgram:
             self._run()
         elif self.graph is None:
             side = self._warm_up()
+            t1 = time.perf_counter()
             self._capture(side)
+            self.capture_s = time.perf_counter() - t1
             self.first_s = time.perf_counter() - t0
         else:
-            self.graph.replay()
+            self._replay()
             self.replays += 1
-            launch._add_replayed(self.launches)
             self.replay_s += time.perf_counter() - t0
         return self.outputs, self.carry
 
@@ -378,21 +391,40 @@ class ChunkProgram:
         return side
 
     def _capture(self, side) -> None:
-        """Capture the body on ``side`` into the owner's pool. The counters
-        changed by the capture are recorded and put back: the capture runs
-        nothing."""
+        """Capture each captured step as a graph of its own; the launches
+        of one run are the sum of theirs."""
+        pool0 = 0 if self.owner.pool is None else _pool_bytes(self.owner.pool)
+        segs = [self._capture_fn(fn, side) if captured else None
+                for captured, fn in self.steps]
+        self.launches = {}
+        for seg in filter(None, segs):
+            for k, n in seg[1].items():
+                self.launches[k] = self.launches.get(k, 0) + n
+        self.graph = segs
+        self.pool_mb = (_pool_bytes(self.owner.pool) - pool0) / 2**20
+
+    def _replay(self) -> None:
+        for (_, fn), seg in zip(self.steps, self.graph):
+            if seg is None:
+                fn()
+            else:
+                seg[0].replay()
+                launch._add_replayed(seg[1])
+
+    def _capture_fn(self, fn, side) -> tuple:
+        """Capture ``fn()`` on ``side`` into the owner's pool; returns (the
+        graph, the launch counters' change). The counters changed by the
+        capture are recorded and put back: the capture runs nothing."""
         if torch.backends.cuda.matmul.allow_tf32:
             raise CaptureError("TF32 is on: the GEMMs must stay fp32 (the "
                                "package turns TF32 off at import)")
-        t0 = time.perf_counter()
         before = launch._counters()
-        pool0 = 0 if self.owner.pool is None else _pool_bytes(self.owner.pool)
         g = torch.cuda.CUDAGraph()
         first = None  # the body's error: ending the capture raises another
         try:
             with torch.cuda.graph(g, pool=self.owner.pool, stream=side):
                 try:
-                    self._run()
+                    fn()
                 except RuntimeError as e:
                     first = e
                     raise
@@ -403,10 +435,32 @@ class ChunkProgram:
         finally:
             after = launch._counters()
             launch._set_counters(before)
-        self.launches = {k: after[k] - before[k] for k in after
-                         if after[k] != before[k]}
         if self.owner.pool is None:
             self.owner.pool = g.pool()
-        self.pool_mb = (_pool_bytes(self.owner.pool) - pool0) / 2**20
-        self.graph = g
-        self.capture_s = time.perf_counter() - t0
+        return g, {k: after[k] - before[k] for k in after
+                   if after[k] != before[k]}
+
+
+class SegmentedProgram(ChunkProgram):
+    """A chunk program whose body holds collectives, which a graph cannot
+    hold on gloo (see Collectives above): one captured graph for each
+    segment between them, the collectives run eagerly between the
+    segments' replays, in stream order.
+
+    ``steps(inputs, carry, outputs)`` (the owner's static inputs and carry,
+    and the outputs) returns the body as a list of ``(captured, fn)``. The
+    steps run in order; the captured ones are the segments, and the others
+    (the collectives) run at every call. A step reads and writes static
+    buffers only (those three and whatever buffers the caller made for
+    what crosses a collective), never a tensor that another step made: a
+    segment's own tensors live in the graph pool only while it runs. The
+    segment that ends the body writes the new carry into the static carry
+    itself. Calls, the first run, the eager runs and the lifetime of the
+    results are :class:`ChunkProgram`'s; each segment's replay adds the
+    launches recorded at its capture to ``launch.REPLAYED``, and
+    :attr:`launches` holds their sum (one run's)."""
+
+    def __init__(self, owner: Programs, steps, inputs_like, carry_like,
+                 outputs: tuple, key=None):
+        super().__init__(owner, None, inputs_like, carry_like, outputs, key)
+        self.steps = steps(self.inputs, self.carry, outputs)

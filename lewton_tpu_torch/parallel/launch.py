@@ -43,6 +43,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import datetime
+import functools
 import hashlib
 import importlib
 import importlib.util
@@ -265,17 +266,21 @@ def run_case(mesh, case: dict) -> tuple[dict, dict]:
       seed + i, the carry chained) through :func:`decode_chunk_sharded`
       (``with_i16``, ``compact_cap``); ``warmup`` runs the chunks once
       untimed first. With ``programs`` the chunks go through the
-      programs of one ``graphs.Programs`` (captured on a card at tp = 1),
-      and the record gets its ``programs`` stats and the digests and
-      ``eager_maxdiff`` of a run again with ``programs=None``, after the
-      timed run. Arrays: each chunk's outputs, the final carry.
+      programs of one ``graphs.Programs`` (captured on a card; at tp > 1
+      two segments a chunk around the all-reduce), and the record gets
+      its ``programs`` stats and ``eager``: the digests, ``eager_maxdiff``
+      and ``ms_per_chunk`` of a run again with ``programs=None``, after
+      the timed run. Arrays: each chunk's outputs, the final carry.
     - ``streams``: the stream in ``file``, once per entry of ``lengths``
       (its first that many audio packets; null for all), through
       ``BatchDecoder(mesh=)`` (``chunk``; the native front-end, on the
       raw header packets), ``decode_streams`` or, with ``i16``,
-      ``decode_streams_i16(compact=)``; the record gets whether its
-      transfer slots' programs are ``graphed`` and their ``programs``
-      stats. Arrays: one per stream.
+      ``decode_streams_i16(compact=)``; the record gets its transfer
+      slots' ``programs`` stats and, with ``eager``, ``eager`` as above
+      from a run again under ``graphs.eager()``. Arrays: one per stream.
+
+    Both kinds record ``graphed``: whether the run's programs were all
+    captured (on a card; never on the CPU, where programs run eagerly).
 
     The launch counts are set to 0 just before the timed run and read just
     after it: each kernel form's launches through its wrapper and in
@@ -343,16 +348,30 @@ def run_case(mesh, case: dict) -> tuple[dict, dict]:
     arrays = _on_host(arrays)
     lo, hi = _dp_block(mesh, S)
     rec |= _digests(arrays, kind, lo, hi)
+    rerun = None
     if kind == "streams":
         rec["last_stats"] = {k: v for k, v in dec.last_stats.items()
                              if k != "stages"}
-        rec["graphed"] = dec._slots.programs.graphed
-        rec["programs"] = dec._slots.programs.stats()
+        progs = dec._slots.programs
+        if case.get("eager", False):
+            def rerun():
+                with graphs.eager():
+                    return run()
     elif progs is not None:
-        rec["programs"] = progs.stats()
-        eager = _on_host(run(None))
+        rerun = functools.partial(run, None)
+    if progs is not None:
+        st = rec["programs"] = progs.stats()
+        rec["graphed"] = 0 < st["captured"] == st["programs"]
+    if rerun is not None:
+        _sync(dev)
+        t0 = time.perf_counter()
+        eager = rerun()
+        _sync(dev)
+        secs = time.perf_counter() - t0
+        eager = _on_host(eager)
         rec["eager"] = _digests(eager, kind, lo, hi) | {
-            "eager_maxdiff": _maxdiff(arrays, eager)}
+            "eager_maxdiff": _maxdiff(arrays, eager),
+            "ms_per_chunk": 1e3 * secs / chunks}
     if case.get("held", False):
         held: dict = {}
         _zero_counters()

@@ -24,6 +24,11 @@ CPU, where a program runs its eager body on its static buffers.
   the kernels never replays there).
 - A replay's launches go to ``launch.REPLAYED``, the wrappers' counters
   count only their own launches.
+- A program whose IMDCT holds a collective (a mesh's at tp > 1, stood in
+  for by a transform that halves and then doubles) runs as two segments a
+  chunk around it, bit for bit the eager decode; on a stood-in card each
+  segment is a graph, the collective runs between the replays, and each
+  segment's launches are added at its replay.
 - A capture error on a card propagates as ``CaptureError`` naming the op;
   nothing runs eagerly in its place.
 """
@@ -48,7 +53,7 @@ from lewton_tpu_torch.ogg import PacketReader
 from lewton_tpu_torch.ops import imdct
 from lewton_tpu_torch.ops.imdct import sum_order_bound
 from lewton_tpu_torch.ops.windowing import init_window_carry
-from lewton_tpu_torch.ops import floor_kernel
+from lewton_tpu_torch.ops import floor_kernel, overlap_kernel, windowing
 from lewton_tpu_torch.parallel import batch, graphs, launch
 from lewton_tpu_torch.parallel.batch import (BatchDecoder, decode_chunk_batch,
                                              decode_chunks_scan,
@@ -314,22 +319,119 @@ def test_programs_run_eager_where_wrappers_are_swapped(case, monkeypatch):
     _, cs, runs = case
     prog = scan_program(graphs.Programs(), cs, _torch_frames(runs[0]),
                         _carry0(cs), with_i16=True)
-    mesh_prog = scan_program(graphs.Programs(graphed=False), cs,
-                             _torch_frames(runs[0]), _carry0(cs))
-    assert not prog.graphed()  # the CPU
-    monkeypatch.setattr(prog, "device", torch.device("cuda"))
-    monkeypatch.setattr(mesh_prog, "device", torch.device("cuda"))
-    assert prog.graphed() and not mesh_prog.graphed()
+    # a mesh's program at tp > 1 (its segments around the collective) takes
+    # the same route
+    mesh_prog = scan_program(graphs.Programs(), cs, _torch_frames(runs[0]),
+                             _carry0(cs), imdct=_Split())
+    assert isinstance(mesh_prog, graphs.SegmentedProgram)
+    progs = (prog, mesh_prog)
+    assert not any(p.graphed() for p in progs)  # the CPU
+    for p in progs:
+        monkeypatch.setattr(p, "device", torch.device("cuda"))
+    assert all(p.graphed() for p in progs)
     assert launch.kernels_in_use()
     with launch.plain_kernels():
-        assert not launch.kernels_in_use() and not prog.graphed()
+        assert not launch.kernels_in_use()
+        assert not any(p.graphed() for p in progs)
     with launch.held_kernels({}):
-        assert not launch.kernels_in_use() and not prog.graphed()
-    assert launch.kernels_in_use() and prog.graphed()
+        assert not launch.kernels_in_use()
+        assert not any(p.graphed() for p in progs)
+    assert launch.kernels_in_use() and all(p.graphed() for p in progs)
     with graphs.eager():
-        assert not prog.graphed()
+        assert not any(p.graphed() for p in progs)
     monkeypatch.setattr(decoder, "floor_spectra", decoder.floor_spectra_ref)
-    assert not launch.kernels_in_use() and not prog.graphed()
+    assert not launch.kernels_in_use()
+    assert not any(p.graphed() for p in progs)
+
+
+class _Split:
+    """A stand-in for a mesh's tp IMDCT (``batch._TPImdct``) on one process:
+    ``local`` the stock IMDCT halved, ``collective`` doubling its input in
+    place (exact: the sum of two equal halves), counting its calls."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def local(self, spectra, bf, m0, m1):
+        return imdct.imdct_batch(spectra, bf, m0, m1) * 0.5
+
+    def collective(self, audio) -> None:
+        self.calls += 1
+        audio.mul_(2.0)
+
+    def __call__(self, spectra, bf, m0, m1):
+        audio = self.local(spectra, bf, m0, m1)
+        self.collective(audio)
+        return audio
+
+
+@pytest.mark.parametrize("with_i16, compact_cap",
+                         [(False, None), (True, None), (False, 16384)])
+def test_segmented_program_against_eager(case, with_i16, compact_cap):
+    """A program whose IMDCT holds a collective (a mesh's at tp > 1) runs
+    as segments around it: one segment before the collective, the
+    collective, one after, for each chunk. Run twice with the carry it
+    returns passed back, bit for bit the eager decode with the same
+    transform (which calls it whole), and the collective runs once a
+    chunk."""
+    _, cs, runs = case
+    split = _Split()
+    prog = scan_program(graphs.Programs(), cs, _torch_frames(runs[0]),
+                        _carry0(cs), with_i16, compact_cap, imdct=split)
+    assert isinstance(prog, graphs.SegmentedProgram)
+    assert [c for c, _ in prog.steps] == [True, False, True] * N
+    carry = e_carry = _carry0(cs)
+    for fr in map(_torch_frames, runs):
+        got, carry = prog(fr, carry)
+        got = tuple(x.clone() for x in got)
+        assert carry is prog.carry
+        want = batch._scan_outputs(cs, N, S, T, with_i16, compact_cap, "cpu")
+        e_carry = batch._scan_into(cs, fr, e_carry, want, with_i16,
+                                   compact_cap, imdct=split)
+        assert got[0].numel() and all(
+            _equal(g, w) for g, w in zip(got + carry, want + e_carry))
+    assert split.calls == 4 * N  # two program runs, two eager decodes
+
+
+def test_segments_capture_and_replay_around_the_collective(case,
+                                                           monkeypatch):
+    """On a (stood-in) card a segmented program captures each segment as a
+    graph of its own: 2 N graphs for N chunks, the collectives run at the
+    first call's warm-up and at every replay call (never captured), and
+    each segment's replay adds the launches recorded at its capture to
+    launch.REPLAYED (K2's audio form, stood in for by a wrapper that
+    counts, in each chunk's second segment)."""
+    _, cs, runs = case
+    split = _Split()
+    frs = _torch_frames(runs[0])
+    prog = scan_program(graphs.Programs(), cs, frs, _carry0(cs), True,
+                        imdct=split)
+    kernel = windowing.overlap_i16_audio
+
+    def overlap_i16_audio(*a, **kw):
+        overlap_kernel.LAUNCHES_AUDIO += 1
+        return kernel(*a, **kw)
+
+    _stand_in_card(monkeypatch, [])
+    monkeypatch.setattr(windowing, "overlap_i16_audio", overlap_i16_audio)
+    monkeypatch.setattr(launch, "_DEFINED", tuple(
+        (m, n, overlap_i16_audio if n == "overlap_i16_audio" else f)
+        for m, n, f in launch._DEFINED))
+    monkeypatch.setattr(overlap_kernel, "LAUNCHES_AUDIO", 0)
+    monkeypatch.setattr(launch, "REPLAYED", dict.fromkeys(launch.COUNTERS, 0))
+    prog(frs, _carry0(cs))  # warm-up, capture
+    assert split.calls == N and overlap_kernel.LAUNCHES_AUDIO == N
+    assert len(prog.graph) == 3 * N  # a step each, None for a collective
+    assert sum(seg is not None for seg in prog.graph) == 2 * N
+    assert prog.launches == {"overlap_audio": N}
+    assert not any(launch.REPLAYED.values())
+    for _ in range(2):
+        prog(frs, _carry0(cs))
+    assert split.calls == 3 * N and overlap_kernel.LAUNCHES_AUDIO == N
+    assert launch.REPLAYED == dict.fromkeys(launch.COUNTERS, 0) | {
+        "overlap_audio": 2 * N}
+    st = prog.owner.stats()
+    assert st["captured"] == 1 and st["replays"] == 2
 
 
 class _Graph:

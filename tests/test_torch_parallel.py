@@ -23,14 +23,21 @@ Tolerances, each with its reason:
   of every rank, bit for bit (sha256 of the arrays): they must not drift
   apart chunk by chunk;
 - ``_imdct_tp`` against ``imdct_batch`` within the bound two fp32 sums of
-  the same terms may differ by: 2 gamma_K max_j sum_k |s_k m_kj|.
+  the same terms may differ by: 2 gamma_K max_j sum_k |s_k m_kj|;
+- at tp > 1 ((2, 2), (2, 3)) ``decode_chunk_sharded(programs=)`` and
+  ``BatchDecoder(mesh=)`` run their chunks as two segments around the tp
+  all-reduce (``graphs.SegmentedProgram``): bit for bit their eager runs,
+  and ``_imdct_tp`` split into its local part and the all-reduce bit for
+  bit the unsplit one.
 """
 
 import concurrent.futures
 import contextlib
+import functools
 import json
 import os
 import time
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -74,7 +81,10 @@ CHUNK = 16
 #: stream is shorter, so one dp rank runs chunks past its own streams' end
 F32_STREAMS = {"tiny_44k": [None, 7], "stereo_44k_q3": [56, 41]}
 I16_STREAMS = {"stereo_44k_q3": [56, 41], "ch6_44k_q3": [None, 40]}
-I16_MESHES = [(2, 1), (2, 2)]
+I16_MESHES = [(2, 1), (2, 2), (2, 3)]
+#: the meshes whose chunks run as two segments around the tp all-reduce
+#: (graphs.SegmentedProgram)
+TP_MESHES = [(2, 2), (2, 3)]
 #: decode_chunk_sharded on synthetic frames: setup, S, T, chunks, seed
 SYNTH = {"setup": [2, 8, 11], "S": 4, "T": 8, "N": 2, "seed": 5}
 CAP = 8192  # compact_cap of the compacted chunk case (at (2, 2))
@@ -98,16 +108,23 @@ def _spec(dp: int, tp: int) -> list:
     cases = [{"name": f"f32_{n}", "kind": "streams", "file": _path(n),
               "lengths": lens, "chunk": CHUNK}
              for n, lens in F32_STREAMS.items()]
+    # at tp > 1 the i16 batch decodes run again under graphs.eager()
+    eager = tp > 1
     if (dp, tp) in I16_MESHES:
         cases += [{"name": f"i16_{n}", "kind": "streams", "file": _path(n),
-                   "lengths": lens, "chunk": CHUNK, "i16": True}
+                   "lengths": lens, "chunk": CHUNK, "i16": True,
+                   "eager": eager}
                   for n, lens in I16_STREAMS.items()]
         cases.append({"name": "i16_host", "kind": "streams",
                       "file": _path("stereo_44k_q3"),
                       "lengths": I16_STREAMS["stereo_44k_q3"],
-                      "chunk": CHUNK, "i16": True, "compact": "host"})
+                      "chunk": CHUNK, "i16": True, "compact": "host",
+                      "eager": eager})
     cases += [dict(SYNTH, name=f"chunk_{w}", kind="chunk", with_i16=w)
               for w in (False, True)]
+    if (dp, tp) in TP_MESHES:
+        cases += [dict(SYNTH, name=f"prog_{w}", kind="chunk", with_i16=w,
+                       programs=True) for w in (False, True)]
     if (dp, tp) == (2, 2):
         cases.append(dict(SYNTH, name="chunk_cap", kind="chunk",
                           compact_cap=CAP))
@@ -266,6 +283,7 @@ def _synth_bound(cs, frs) -> float:
         cs, frames_to_device(fr, "cpu"))[0]) for fr in frs)
 
 
+@functools.cache
 def _j_chunks(mesh, with_i16, compact_cap=None):
     """The reference's decode_chunk_sharded over SYNTH's chunks: [outputs
     of each chunk], final carry."""
@@ -309,6 +327,47 @@ def test_decode_chunk_sharded(runs, mesh, with_i16):
     want, carry = _j_chunks(mesh, with_i16)
     _check_chunks(_case(arrays, f"chunk_{with_i16}"), want, carry, cs,
                   with_i16)
+
+
+@pytest.mark.parametrize("with_i16", [False, True])
+@pytest.mark.parametrize("mesh", TP_MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+def test_tp_chunk_programs(runs, mesh, with_i16):
+    """decode_chunk_sharded(programs=) at tp > 1, its chunks as two
+    segments around the tp all-reduce (one program a rank): the gathered
+    outputs and carry bit for bit the same chunks decoded without
+    programs, and on every rank bit for bit its own eager rerun; within
+    the reference's decode_chunk_sharded by this file's bounds."""
+    recs, arrays = runs(*mesh)
+    got, eager = _case(arrays, f"prog_{with_i16}"), _case(
+        arrays, f"chunk_{with_i16}")
+    assert got.keys() == eager.keys()
+    assert all(np.array_equal(got[k], eager[k]) for k in got)
+    for r in recs:
+        c = r["cases"][f"prog_{with_i16}"]
+        assert c["programs"]["programs"] == 1 and c["graphed"] is False
+        assert c["eager"]["eager_maxdiff"] == 0.0
+        assert c["eager"]["digest_block"] == c["digest_block"]
+        assert c["eager"]["digest_gathered"] == c["digest_gathered"]
+    cs = compile_setup(*synthetic_headers(*SYNTH["setup"]), device="cpu")
+    _check_chunks(got, *_j_chunks(mesh, with_i16), cs, with_i16)
+
+
+@pytest.mark.parametrize("mesh", TP_MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+def test_tp_batch_decoder_programs(runs, mesh):
+    """BatchDecoder(mesh=).decode_streams_i16 at tp > 1 through its
+    transfer slots' programs (segments around the tp all-reduce): every
+    rank's streams bit for bit its rerun under graphs.eager(), a program
+    for each group shape (none captured on the CPU); the streams against
+    the reference's mesh decode are test_decode_streams_i16's."""
+    recs, _ = runs(*mesh)
+    names = [f"i16_{n}" for n in I16_STREAMS] + ["i16_host"]
+    for r in recs:
+        for name in names:
+            c = r["cases"][name]
+            assert c["programs"]["programs"] >= 1 and c["graphed"] is False
+            assert c["eager"]["eager_maxdiff"] == 0.0
+            assert c["eager"]["digest_block"] == c["digest_block"]
+            assert c["eager"]["digest_gathered"] == c["digest_gathered"]
 
 
 def test_decode_chunk_sharded_compact_cap(runs):
@@ -404,6 +463,73 @@ def test_imdct_tp_matches_imdct_batch(ntp, monkeypatch):
     assert float((got - want).abs().max()) <= bound
     if ntp == 1:
         assert torch.equal(got, want)
+
+
+def _imdct_tp_before(spectra, bf, m0, m1, group=None, ntp: int = 1):
+    """_imdct_tp as it stood before it was split into its local part and
+    the all-reduce, for the test below."""
+    ti = dist.get_rank(group) if ntp > 1 else 0
+
+    def part(mat, spec):
+        w = mat.shape[0]
+        wk = -(-w // ntp)
+        lo, hi = min(ti * wk, w), min((ti + 1) * wk, w)
+        sl, mk = spec[..., lo:hi], mat[lo:hi]
+        if hi - lo < wk:  # this rank's slice reaches into the zero pad
+            sl = torch.nn.functional.pad(sl, (0, wk - (hi - lo)))
+            mk = torch.nn.functional.pad(mk, (0, 0, 0, wk - (hi - lo)))
+        return torch.matmul(sl, mk)
+
+    n0, n1 = m0.shape[1], m1.shape[1]
+    out = part(m1, spectra)
+    if n0 != n1:
+        short = torch.nn.functional.pad(part(m0, spectra), (0, n1 - n0))
+        out = torch.where((bf == 1)[:, None, None], out, short)
+    if ntp > 1:
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
+@pytest.mark.parametrize("ntp", [1, 2, 3])
+def test_imdct_tp_split_is_the_old_one(ntp, monkeypatch):
+    """The factored _imdct_tp (_imdct_tp_local, then the all-reduce) and
+    the mesh's transform (_TPImdct: its local part, then its collective,
+    the split a segmented program runs) bit for bit the unsplit _imdct_tp
+    on every tp rank, the all-reduce stood in for by one that doubles its
+    tensor in place (once per call, on the group given)."""
+    cs = compile_setup(*synthetic_headers(2, 8, 11), device="cpu")
+    rng = np.random.default_rng(ntp)
+    rows, W = 24, cs.imdct_m1.shape[0]
+    spectra = torch.from_numpy(
+        rng.standard_normal((rows, cs.channels, W)).astype(np.float32))
+    bf = torch.from_numpy(rng.integers(0, 2, rows).astype(np.int32))
+    m0, m1 = cs.imdct_m0, cs.imdct_m1
+    group = SimpleNamespace(group_name="tp")
+    calls = []
+
+    def all_reduce(t, op=None, group=None):
+        calls.append(group)
+        t.mul_(2.0)
+    monkeypatch.setattr(tbatch.dist, "all_reduce", all_reduce)
+    for ti in range(ntp):
+        monkeypatch.setattr(tbatch.dist, "get_rank", lambda group=None: ti)
+        want = _imdct_tp_before(spectra, bf, m0, m1, group, ntp)
+        got = tbatch._imdct_tp(spectra, bf, m0, m1, group, ntp)
+        split = tbatch._TPImdct(group, ntp)
+        local = split.local(spectra, bf, m0, m1)
+        if ntp > 1:
+            split.collective(local)
+        whole = split(spectra, bf, m0, m1)
+        for g in (got, local, whole):
+            assert _equal_bits(g, want)
+        assert split == tbatch._TPImdct(group, ntp)
+        assert hash(split) == hash(tbatch._TPImdct(group, ntp))
+    assert calls == ([group] * 4 * ntp if ntp > 1 else [])
+
+
+def _equal_bits(a, b) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
 
 
 @pytest.mark.parametrize("differ", [False, True])

@@ -23,10 +23,16 @@ the CPU, where a program runs its eager body on its static buffers
   decode.
 - ``save_state`` / ``load_state``, the reader's save/restore and seek
   through programs, bit for bit as under ``graphs.eager()``.
-- ``with_taps`` with ``programs`` raises.
+- ``decode_frames(with_taps=True, programs=)`` (the reference's jit takes
+  ``with_taps`` as a static argument): bit for bit the eager taps, PCM and
+  carry over two chained chunks, and on two gate streams (a K1-eligible
+  setup the taps route sends through the generic stages, and floor 0)
+  within tests/test_torch_debug_taps.py's tolerances of the reference's
+  jitted ``decode_frames(with_taps=True)``.
 - ``decode_chunk_sharded(programs=)`` on a (2, 1) gloo CPU mesh within
   1 LSB of the unsharded decode and bit for bit its own eager run, and
-  ``BatchDecoder(mesh=)`` at tp = 1 with graphed transfer slots.
+  ``BatchDecoder(mesh=)`` at tp = 1 through programs, bit for bit under
+  ``graphs.eager()`` (tp > 1: tests/test_torch_parallel.py).
 """
 
 import dataclasses
@@ -40,7 +46,7 @@ import torch
 
 from lewton_tpu.models.decoder import decode_frames as jax_decode_frames
 from lewton_tpu.ops.windowing import init_window_carry as jax_init_carry
-from lewton_tpu_torch import _build
+from lewton_tpu_torch import _build, debug
 from lewton_tpu_torch.inside_ogg import OggStreamReader, read_headers
 from lewton_tpu_torch.models.decoder import (StreamDecoder, compile_setup,
                                              decode_frames,
@@ -285,15 +291,67 @@ def test_save_load_and_seek_through_programs():
                           np.concatenate(got[20:28], 1))
 
 
-def test_with_taps_refused_with_programs():
+def test_with_taps_through_programs():
+    """decode_frames(with_taps=True, programs=) over two chained chunks
+    (each path's carry passed back to it): the taps, the f32 PCM, out_len
+    and the carry bit for bit the eager run's; one program, whose taps are
+    its static buffers of the eager taps' shapes."""
     cs = compile_setup(*synthetic_headers(2, 8, 11), device="cpu")
-    fr = {k: torch.from_numpy(v[0])
-          for k, v in synthetic_frames(cs, T=4, S=1, seed=1).items()}
-    with pytest.raises(ValueError, match="with_taps"):
-        decode_frames(cs, fr, _carry1(cs), with_taps=True,
-                      programs=graphs.Programs())
-    (_, _, taps), _ = decode_frames(cs, fr, _carry1(cs), with_taps=True)
-    assert "pre_mdct" in taps
+    programs = graphs.Programs()
+    carry = e_carry = _carry1(cs)
+    for seed in (1, 2):
+        fr = {k: torch.from_numpy(v[0])
+              for k, v in synthetic_frames(cs, T=6, S=1, seed=seed).items()}
+        (pcm, ln, taps), carry = decode_frames(cs, fr, carry, with_taps=True,
+                                               programs=programs)
+        (e_pcm, e_ln, e_taps), e_carry = decode_frames(cs, fr, e_carry,
+                                                       with_taps=True)
+        (prog,) = programs.programs.values()
+        assert carry is prog.carry and taps is prog.outputs[2]
+        assert tuple(taps) == debug.TAP_NAMES == tuple(e_taps)
+        assert all(_equal(taps[k], e_taps[k]) for k in taps)
+        assert all(_equal(a, b) for a, b in zip(
+            (pcm, ln) + carry, (e_pcm, e_ln) + e_carry))
+    assert int(ln.sum()) > 0 and float(taps["post_mdct"].abs().max()) > 0
+
+
+#: tests/test_torch_debug_taps.py's tolerances: the residue and pre-MDCT
+#: taps, and the post-MDCT tap
+TAP_ATOL, TAP_ATOL_POST = 2e-6, 1e-4
+
+
+@pytest.mark.parametrize("name", ["stereo_44k_q3", "f0_coupled_stereo"])
+def test_taps_program_against_reference(name):
+    """decode_frames(with_taps=True, programs=) over 2 chained chunks of a
+    corpus stream against the reference's jitted decode_frames(with_taps=
+    True) on JAX's CPU: each tap within tests/test_torch_debug_taps.py's
+    tolerances, out_len and the carry's plen and started exact, the f32
+    PCM within the sum-order bound."""
+    ident, setup, packets = _packets(stream_bytes(name))
+    frs = _frames(ident, setup, packets, 12, 2)
+    jcs, cs = _setups(ident, setup)
+    programs = graphs.Programs()
+    jcarry, carry = jax_init_carry(cs.channels, cs.n1 // 2), _carry1(cs)
+    bound = _pcm_bound(cs, {k: torch.from_numpy(v) for k, v in frs.items()})
+    for n in range(2):
+        fr = {k: v[n, 0] for k, v in frs.items()}
+        (j_out, j_len, j_taps), jcarry = jax_decode_frames(
+            jcs, {k: jnp.asarray(v) for k, v in fr.items()}, jcarry,
+            with_taps=True)
+        (out, out_len, taps), carry = decode_frames(
+            cs, {k: torch.from_numpy(v) for k, v in fr.items()}, carry,
+            with_taps=True, programs=programs)
+        for k in debug.TAP_NAMES:
+            want = np.asarray(j_taps[k])
+            assert taps[k].shape == want.shape, k
+            tol = TAP_ATOL_POST if k == "post_mdct" else TAP_ATOL
+            np.testing.assert_allclose(taps[k].numpy(), want, atol=tol,
+                                       rtol=0, err_msg=k)
+        _close_f32(j_out, out, bound)
+        assert np.array_equal(np.asarray(j_len), out_len.numpy())
+        assert np.array_equal(np.asarray(jcarry[1]), carry[1].numpy())
+        assert np.array_equal(np.asarray(jcarry[2]), carry[2].numpy())
+    assert programs.stats()["programs"] == 1 and int(carry[1]) > 0
 
 
 #: decode_chunk_sharded on synthetic frames at (2, 1): setup, S, T, chunks
@@ -304,7 +362,9 @@ def test_sharded_programs_on_a_dp_mesh(tmp_path):
     """(2, 1) gloo CPU ranks: decode_chunk_sharded(programs=) i16 within
     1 LSB of the unsharded decode here (lengths and plen/started exact)
     and bit for bit its own eager run on every rank, one program a rank;
-    BatchDecoder(mesh=) at tp = 1 with graphed transfer slots."""
+    BatchDecoder(mesh=) at tp = 1 through its transfer slots' programs,
+    bit for bit its rerun under graphs.eager() (on the CPU no program is
+    captured: ``graphed`` is false)."""
     _build.load_host_library()
     spec = tmp_path / "spec.json"
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
@@ -313,7 +373,7 @@ def test_sharded_programs_on_a_dp_mesh(tmp_path):
         dict(SHARDED, name="chunk", kind="chunk", with_i16=True,
              programs=True),
         {"name": "streams", "kind": "streams", "file": path,
-         "lengths": [40, 33], "chunk": 16, "i16": True}]}))
+         "lengths": [40, 33], "chunk": 16, "i16": True, "eager": True}]}))
     job = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "_torch_parallel_jobs.py") + ":cases"
     spawn(2, 1, job, tmp_path, "gloo", "cpu", spec, timeout=60.0,
@@ -327,8 +387,12 @@ def test_sharded_programs_on_a_dp_mesh(tmp_path):
         assert chunk["programs"]["programs"] == 1
         assert chunk["eager"]["eager_maxdiff"] == 0.0
         assert chunk["eager"]["digest_gathered"] == chunk["digest_gathered"]
-        assert r["cases"]["streams"]["graphed"] is True
-        assert r["cases"]["streams"]["programs"]["programs"] >= 1
+        streams = r["cases"]["streams"]
+        assert streams["graphed"] is False and chunk["graphed"] is False
+        assert streams["programs"]["programs"] >= 1
+        assert streams["eager"]["eager_maxdiff"] == 0.0
+        assert streams["eager"]["digest_gathered"] == \
+            streams["digest_gathered"]
     cs = compile_setup(*synthetic_headers(*SHARDED["setup"]), device="cpu")
     S = SHARDED["S"]
     carry = init_window_carry(cs.channels, cs.n1 // 2, S, "cpu")
