@@ -4,7 +4,8 @@ The C++ sources beside this file are the port's copy of the reference's
 host library (lewton_tpu/native/): Ogg demux, header parse and Huffman/VQ
 entropy decode into the same dense frames as the Python front-end
 (``audio.decode_packet_entropy`` + ``models.decoder.pack_frames``), bit for
-bit (``lt_bits``, ``lt_header``, ``lt_entropy``, ``lt_ogg``); the CPU
+bit (``lt_bits``, ``lt_header``, ``lt_entropy``, ``lt_ogg``; the Ogg page
+loop also reads fed bytes, :class:`NativeIncrementalReader`); the CPU
 synthesis decoder of the reader's ``"native"`` backend (``lt_synth``,
 :class:`NativeDecoder`), the one-call whole-file decode (``lt_file``,
 :func:`decode_ogg_i16`) and the lewton-compatible C ABI of
@@ -17,6 +18,7 @@ failed build raises, and nothing here falls back to the Python front-end.
 from __future__ import annotations
 
 import ctypes as C
+from collections import deque
 
 import numpy as np
 
@@ -24,7 +26,8 @@ from .. import _build, profiling
 from ..errors import AudioBadFormat, AudioIsHeader, BadHeader, OggError
 
 __all__ = ["available", "NativeStream", "NativeDecoder", "PacketSpans",
-           "NativePacket", "NativePacketReader", "demux", "demux_spans",
+           "NativePacket", "NativePacketReader", "NativeIncrementalReader",
+           "demux", "demux_spans",
            "decode_ogg_i16", "pack12"]
 
 _lib = None
@@ -87,6 +90,14 @@ def _load():
     lib.lt_ogg_packet_meta.argtypes = [C.c_void_p, _u64p, _u32p, _u8p,
                                        _u64p, _u64p]
     lib.lt_ogg_packet_data.argtypes = [C.c_void_p, _u8p]
+    lib.lt_ogg_stream_new.restype = C.c_void_p
+    lib.lt_ogg_stream_new.argtypes = []
+    lib.lt_ogg_stream_feed.restype = C.c_int64
+    lib.lt_ogg_stream_feed.argtypes = [C.c_void_p, _u8p, C.c_size_t]
+    for name in ("pages", "held_bytes"):
+        fn = getattr(lib, f"lt_ogg_{name}")
+        fn.restype = C.c_int64
+        fn.argtypes = [C.c_void_p]
     lib.lt_pack12.restype = C.c_int64
     lib.lt_pack12.argtypes = [_i16p, _u32p, C.c_int64, C.c_int64]
     # the CPU synthesis decoder (lt_synth.cc) and the whole-file decode
@@ -397,6 +408,22 @@ class PacketSpans:
         return PacketSpans(blob, np.cumsum(lens) - lens, lens)
 
 
+def _packet_arrays(lib, h, count: int):
+    """(blob, lens, serials, flags, absgp, page granules) of the ``count``
+    packets a native Ogg handle holds."""
+    lens = np.zeros(count, np.uint64)
+    serials = np.zeros(count, np.uint32)
+    flags = np.zeros(count, np.uint8)
+    absgp = np.zeros(count, np.uint64)
+    pgran = np.zeros(count, np.uint64)
+    lib.lt_ogg_packet_meta(h, _ptr(lens, C.c_uint64),
+                           _ptr(serials, C.c_uint32), _u8(flags),
+                           _ptr(absgp, C.c_uint64), _ptr(pgran, C.c_uint64))
+    blob = np.zeros(max(int(lens.sum()), 1), np.uint8)
+    lib.lt_ogg_packet_data(h, _u8(blob))
+    return blob, lens, serials, flags, absgp, pgran
+
+
 def _demux(data: bytes):
     """(blob, lens, serials, flags, absgp, page granules) of every packet
     of an Ogg byte stream, from one native demux."""
@@ -406,21 +433,9 @@ def _demux(data: bytes):
     if not h:
         raise OggError("native ogg demux failed (allocation)")
     try:
-        count = lib.lt_ogg_packet_count(h)
-        lens = np.zeros(count, np.uint64)
-        serials = np.zeros(count, np.uint32)
-        flags = np.zeros(count, np.uint8)
-        absgp = np.zeros(count, np.uint64)
-        pgran = np.zeros(count, np.uint64)
-        lib.lt_ogg_packet_meta(h, _ptr(lens, C.c_uint64),
-                               _ptr(serials, C.c_uint32), _u8(flags),
-                               _ptr(absgp, C.c_uint64),
-                               _ptr(pgran, C.c_uint64))
-        blob = np.zeros(max(int(lens.sum()), 1), np.uint8)
-        lib.lt_ogg_packet_data(h, _u8(blob))
+        return _packet_arrays(lib, h, lib.lt_ogg_packet_count(h))
     finally:
         lib.lt_ogg_free(h)
-    return blob, lens, serials, flags, absgp, pgran
 
 
 def decode_ogg_i16_rc(data: bytes, channels: int, n1: int):
@@ -567,26 +582,81 @@ class NativePacket:
                  "absgp_page", "first_in_page", "last_in_page",
                  "page_granule", "spans_pages")
 
-    def __init__(self, data, serial, flags, absgp, pgran):
+    def __init__(self, data: bytes, serial: int, flags: int, absgp: int,
+                 pgran: int):
         self.data = data
-        self.stream_serial = int(serial)
-        self.first_in_stream = bool(flags & 1)
-        self.last_in_stream = bool(flags & 2)
-        self.first_in_page = bool(flags & 4)
-        self.last_in_page = bool(flags & 8)
-        self.absgp_page = int(absgp) if flags & 16 else None
-        self.page_granule = int(pgran) if flags & 32 else None
-        self.spans_pages = bool(flags & 64)
+        self.stream_serial = serial
+        (self.first_in_stream, self.last_in_stream, self.first_in_page,
+         self.last_in_page, self.spans_pages) = _FLAG_BITS[flags]
+        self.absgp_page = absgp if flags & 16 else None
+        self.page_granule = pgran if flags & 32 else None
+
+
+#: flags -> (first_in_stream, last_in_stream, first_in_page, last_in_page,
+#: spans_pages)
+_FLAG_BITS = [tuple(bool(f >> b & 1) for b in (0, 1, 2, 3, 6))
+              for f in range(128)]
+
+
+def _packet_list(blob, lens, serials, flags, absgp, pgran) -> list:
+    """NativePackets from the arrays of :func:`_packet_arrays`: the bytes
+    sliced from one blob, the fields from Python ints."""
+    raw = blob.tobytes()
+    ends = np.cumsum(lens).tolist()
+    datas = map(raw.__getitem__, map(slice, [0, *ends[:-1]], ends))
+    return list(map(NativePacket, datas, serials.tolist(), flags.tolist(),
+                    absgp.tolist(), pgran.tolist()))
 
 
 def demux(data: bytes) -> list[NativePacket]:
     """Demux a whole Ogg byte stream -> its packets."""
-    blob, lens, serials, flags, absgp, pgran = _demux(data)
-    raw = blob.tobytes()
-    ends = np.cumsum(lens).tolist()
-    starts = [0] + ends[:-1]
-    return [NativePacket(raw[a:b], serials[i], flags[i], absgp[i], pgran[i])
-            for i, (a, b) in enumerate(zip(starts, ends))]
+    return _packet_list(*_demux(data))
+
+
+class NativeIncrementalReader:
+    """``ogg.IncrementalPacketReader``'s surface (``feed``, ``read_packet``,
+    ``pages_read``) over the native page loop. Each feed parses every page
+    it completes and queues their packets; the library holds only the
+    bytes it could not parse yet: a partial page, or the last 3 bytes when
+    no capture pattern is left."""
+
+    def __init__(self):
+        self._lib = _load()
+        self._h = self._lib.lt_ogg_stream_new()
+        if not self._h:
+            raise OggError("native ogg reader failed (allocation)")
+        self._queue: deque = deque()
+        #: CRC-checked pages parsed so far
+        self.pages_read = 0
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self._lib.lt_ogg_free(self._h)
+            self._h = None
+
+    def feed(self, data: bytes) -> None:
+        """Append ``data`` and queue the packets of the pages it
+        completes (counted as ``ogg.native_bytes``)."""
+        profiling.count("ogg.native_bytes", len(data))
+        if not data:  # no new bytes complete no page
+            return
+        lib = self._lib
+        n = lib.lt_ogg_stream_feed(
+            self._h, _u8(np.frombuffer(data, dtype=np.uint8)), len(data))
+        if n < 0:
+            raise OggError("native ogg reader failed (allocation)")
+        self.pages_read = lib.lt_ogg_pages(self._h)
+        if n:
+            self._queue.extend(_packet_list(*_packet_arrays(lib, self._h, n)))
+
+    def read_packet(self) -> NativePacket | None:
+        """The next queued packet, or None until a feed completes one."""
+        return self._queue.popleft() if self._queue else None
+
+    @property
+    def held_bytes(self) -> int:
+        """Bytes held for a later feed."""
+        return self._lib.lt_ogg_held_bytes(self._h)
 
 
 class NativePacketReader:

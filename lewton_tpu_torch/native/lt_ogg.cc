@@ -61,135 +61,155 @@ struct OggPacket {
   uint64_t absgp, page_granule;
 };
 
-struct OggReader {
-  const uint8_t* data;
-  size_t len;
-  std::vector<OggPacket> packets;
+// Per-serial reassembly state of the page loop, kept across calls while a
+// stream's bytes arrive in pieces.
+struct PageState {
+  std::map<uint32_t, std::vector<uint8_t>> partial;
+  std::map<uint32_t, bool> started_on_bos;
+  // per-serial last page sequence number: a gap (lost/corrupt page
+  // skipped by CRC resync) means any pending continued data lost its
+  // tail and must be dropped, never spliced onto the next page's data
+  std::map<uint32_t, uint32_t> last_seq;
+  int64_t pages = 0;  // CRC-checked pages delivered
+};
 
-  void demux() {
-    std::map<uint32_t, std::vector<uint8_t>> partial;
-    std::map<uint32_t, bool> started_on_bos;
-    // per-serial last page sequence number: a gap (lost/corrupt page
-    // skipped by CRC resync) means any pending continued data lost its
-    // tail and must be dropped, never spliced onto the next page's data
-    std::map<uint32_t, uint32_t> last_seq;
-    size_t off = 0;
-    while (off + 27 <= len) {
-      // resync: scan for capture pattern
-      const uint8_t* found = (const uint8_t*)memmem(
-          data + off, len - off, "OggS", 4);
-      if (!found) break;
-      size_t start = (size_t)(found - data);
-      if (start + 27 > len) break;
-      const uint8_t* h = data + start;
-      if (h[4] != 0) {  // unsupported version: skip this capture
-        off = start + 4;
-        continue;
-      }
-      uint8_t header_type = h[5];
-      uint64_t granule = le64(h + 6);
-      uint32_t serial = le32(h + 14);
-      uint32_t seq = le32(h + 18);
-      uint32_t crc = le32(h + 22);
-      uint8_t nsegs = h[26];
-      if (start + 27 + nsegs > len) break;
-      const uint8_t* lacing = h + 27;
-      size_t body_len = 0;
-      for (uint8_t i = 0; i < nsegs; ++i) body_len += lacing[i];
-      if (start + 27 + nsegs + body_len > len) break;
-      const uint8_t* body = lacing + nsegs;
-      // CRC with the CRC field zeroed
-      uint32_t c = crc_update(0, h, 22);
-      uint8_t zeros[4] = {0, 0, 0, 0};
-      c = crc_update(c, zeros, 4);
-      c = crc_update(c, h + 26, 1 + nsegs);
-      c = crc_update(c, body, body_len);
-      if (c != crc) {  // corrupt page: skip capture, rescan
-        off = start + 4;
-        continue;
-      }
-      size_t page_end = start + 27 + nsegs + body_len;
-
-      // lacing -> segments
-      std::vector<std::pair<const uint8_t*, size_t>> segs;  // (ptr, len)
-      size_t pos = 0, seg_start = 0;
-      for (uint8_t i = 0; i < nsegs; ++i) {
-        pos += lacing[i];
-        if (lacing[i] < 255) {
-          segs.emplace_back(body + seg_start, pos - seg_start);
-          seg_start = pos;
-        }
-      }
-      bool unterminated = nsegs > 0 && lacing[nsegs - 1] == 255;
-      if (unterminated) segs.emplace_back(body + seg_start, pos - seg_start);
-
-      bool is_bos = header_type & BOS, is_eos = header_type & EOS;
-      bool continued = header_type & CONTINUED;
-      auto lsq = last_seq.find(serial);
-      if (lsq != last_seq.end() && seq != lsq->second + 1) {
-        partial.erase(serial);  // sequence hole: head lost its tail
-        started_on_bos.erase(serial);
-      }
-      last_seq[serial] = seq;
-      struct Pending {
-        std::vector<uint8_t> data;
-        bool first;
-        bool spans = false;
-      };
-      std::vector<Pending> here;
-      size_t nseg_pkts = segs.size();
-      for (size_t i = 0; i < nseg_pkts; ++i) {
-        bool last_unterminated = unterminated && i == nseg_pkts - 1;
-        std::vector<uint8_t> pkt;
-        bool first;
-        bool spans = false;
-        if (i == 0 && continued) {
-          auto it = partial.find(serial);
-          if (it == partial.end()) {
-            // continuation of a packet whose head was never seen
-            // (sequence hole): drop the tail — never seed it as a packet
-            // head (a later page would splice onto it and deliver a
-            // garbage packet)
-            continue;
-          }
-          pkt = std::move(it->second);
-          partial.erase(it);
-          spans = true;
-          pkt.insert(pkt.end(), segs[i].first, segs[i].first + segs[i].second);
-          auto sb = started_on_bos.find(serial);
-          first = sb != started_on_bos.end() && sb->second;
-          started_on_bos.erase(serial);
-        } else {
-          pkt.assign(segs[i].first, segs[i].first + segs[i].second);
-          first = is_bos;
-        }
-        if (last_unterminated) {
-          partial[serial] = std::move(pkt);
-          started_on_bos[serial] = first;
-        } else {
-          here.push_back({std::move(pkt), first, spans});
-        }
-      }
-      size_t m = here.size();
-      for (size_t i = 0; i < m; ++i) {
-        bool ends_page = i == m - 1;
-        OggPacket p;
-        p.data = std::move(here[i].data);
-        p.serial = serial;
-        p.first_in_stream = here[i].first && i == 0;
-        p.last_in_stream = is_eos && ends_page && !unterminated;
-        p.has_absgp = ends_page && granule != NO_GRANULE;
-        p.absgp = p.has_absgp ? granule : 0;
-        p.first_in_page = i == 0;
-        p.last_in_page = ends_page;
-        p.spans_pages = here[i].spans;
-        p.has_page_granule = granule != NO_GRANULE;
-        p.page_granule = p.has_page_granule ? granule : 0;
-        packets.push_back(std::move(p));
-      }
-      off = page_end;
+// The page loop: appends the packets of every complete page of
+// data[0, len) to `out` and returns the bytes it consumed. It stops where
+// no capture pattern is left (the last 3 bytes kept: a capture may
+// straddle the end) or at a found page that is still incomplete (kept from
+// its capture): where the Python reader returns None and leaves the tail
+// buffered for a later feed.
+size_t demux_pages(const uint8_t* data, size_t len, PageState& st,
+                   std::vector<OggPacket>& out) {
+  size_t off = 0;
+  while (off + 27 <= len) {
+    // resync: scan for capture pattern
+    const uint8_t* found =
+        (const uint8_t*)memmem(data + off, len - off, "OggS", 4);
+    if (!found) return len - 3;
+    size_t start = (size_t)(found - data);
+    if (start + 27 > len) return start;
+    const uint8_t* h = data + start;
+    if (h[4] != 0) {  // unsupported version: skip this capture
+      off = start + 4;
+      continue;
     }
+    uint8_t header_type = h[5];
+    uint64_t granule = le64(h + 6);
+    uint32_t serial = le32(h + 14);
+    uint32_t seq = le32(h + 18);
+    uint32_t crc = le32(h + 22);
+    uint8_t nsegs = h[26];
+    if (start + 27 + nsegs > len) return start;
+    const uint8_t* lacing = h + 27;
+    size_t body_len = 0;
+    for (uint8_t i = 0; i < nsegs; ++i) body_len += lacing[i];
+    if (start + 27 + nsegs + body_len > len) return start;
+    const uint8_t* body = lacing + nsegs;
+    // CRC with the CRC field zeroed
+    uint32_t c = crc_update(0, h, 22);
+    uint8_t zeros[4] = {0, 0, 0, 0};
+    c = crc_update(c, zeros, 4);
+    c = crc_update(c, h + 26, 1 + nsegs);
+    c = crc_update(c, body, body_len);
+    if (c != crc) {  // corrupt page: skip capture, rescan
+      off = start + 4;
+      continue;
+    }
+    size_t page_end = start + 27 + nsegs + body_len;
+    ++st.pages;
+
+    // lacing -> segments
+    std::vector<std::pair<const uint8_t*, size_t>> segs;  // (ptr, len)
+    size_t pos = 0, seg_start = 0;
+    for (uint8_t i = 0; i < nsegs; ++i) {
+      pos += lacing[i];
+      if (lacing[i] < 255) {
+        segs.emplace_back(body + seg_start, pos - seg_start);
+        seg_start = pos;
+      }
+    }
+    bool unterminated = nsegs > 0 && lacing[nsegs - 1] == 255;
+    if (unterminated) segs.emplace_back(body + seg_start, pos - seg_start);
+
+    bool is_bos = header_type & BOS, is_eos = header_type & EOS;
+    bool continued = header_type & CONTINUED;
+    auto lsq = st.last_seq.find(serial);
+    if (lsq != st.last_seq.end() && seq != lsq->second + 1) {
+      st.partial.erase(serial);  // sequence hole: head lost its tail
+      st.started_on_bos.erase(serial);
+    }
+    st.last_seq[serial] = seq;
+    struct Pending {
+      std::vector<uint8_t> data;
+      bool first;
+      bool spans = false;
+    };
+    std::vector<Pending> here;
+    size_t nseg_pkts = segs.size();
+    for (size_t i = 0; i < nseg_pkts; ++i) {
+      bool last_unterminated = unterminated && i == nseg_pkts - 1;
+      std::vector<uint8_t> pkt;
+      bool first;
+      bool spans = false;
+      if (i == 0 && continued) {
+        auto it = st.partial.find(serial);
+        if (it == st.partial.end()) {
+          // continuation of a packet whose head was never seen
+          // (sequence hole): drop the tail — never seed it as a packet
+          // head (a later page would splice onto it and deliver a
+          // garbage packet)
+          continue;
+        }
+        pkt = std::move(it->second);
+        st.partial.erase(it);
+        spans = true;
+        pkt.insert(pkt.end(), segs[i].first, segs[i].first + segs[i].second);
+        auto sb = st.started_on_bos.find(serial);
+        first = sb != st.started_on_bos.end() && sb->second;
+        st.started_on_bos.erase(serial);
+      } else {
+        pkt.assign(segs[i].first, segs[i].first + segs[i].second);
+        first = is_bos;
+      }
+      if (last_unterminated) {
+        st.partial[serial] = std::move(pkt);
+        st.started_on_bos[serial] = first;
+      } else {
+        here.push_back({std::move(pkt), first, spans});
+      }
+    }
+    size_t m = here.size();
+    for (size_t i = 0; i < m; ++i) {
+      bool ends_page = i == m - 1;
+      OggPacket p;
+      p.data = std::move(here[i].data);
+      p.serial = serial;
+      p.first_in_stream = here[i].first && i == 0;
+      p.last_in_stream = is_eos && ends_page && !unterminated;
+      p.has_absgp = ends_page && granule != NO_GRANULE;
+      p.absgp = p.has_absgp ? granule : 0;
+      p.first_in_page = i == 0;
+      p.last_in_page = ends_page;
+      p.spans_pages = here[i].spans;
+      p.has_page_granule = granule != NO_GRANULE;
+      p.page_granule = p.has_page_granule ? granule : 0;
+      out.push_back(std::move(p));
+    }
+    off = page_end;
   }
+  return off;
+}
+
+// A demuxed byte stream. lt_ogg_new runs the page loop once on a whole
+// buffer it borrows; a fed stream (lt_ogg_stream_new) runs it on each feed
+// and holds only the bytes it did not consume: at most one partial page
+// and a few bytes. `packets` are the whole buffer's, or those a fed
+// stream's last feed completed.
+struct OggReader {
+  std::vector<OggPacket> packets;
+  PageState state;
+  std::vector<uint8_t> held;
 };
 
 }  // namespace lt
@@ -198,12 +218,39 @@ extern "C" {
 
 lt::OggReader* lt_ogg_new(const uint8_t* data, size_t len) try {
   auto r = std::make_unique<lt::OggReader>();
-  r->data = data;
-  r->len = len;
-  r->demux();
+  lt::demux_pages(data, len, r->state, r->packets);
   return r.release();
 } catch (const std::exception&) {
   return nullptr;  // never let C++ exceptions cross the C ABI into ctypes
+}
+
+lt::OggReader* lt_ogg_stream_new() try {
+  return new lt::OggReader();
+} catch (const std::exception&) {
+  return nullptr;
+}
+
+// Append `len` bytes to a fed stream and parse every page they complete.
+// Returns the packets completed (lt_ogg_packet_* read them until the next
+// feed), or -1 when memory ran out (the stream is then unusable).
+int64_t lt_ogg_stream_feed(lt::OggReader* r, const uint8_t* data,
+                           size_t len) try {
+  r->packets.clear();
+  r->held.insert(r->held.end(), data, data + len);
+  size_t used = lt::demux_pages(r->held.data(), r->held.size(), r->state,
+                                r->packets);
+  r->held.erase(r->held.begin(), r->held.begin() + used);
+  return (int64_t)r->packets.size();
+} catch (const std::exception&) {
+  return -1;
+}
+
+// CRC-checked pages parsed so far
+int64_t lt_ogg_pages(const lt::OggReader* r) { return r->state.pages; }
+
+// bytes a fed stream holds for a later feed
+int64_t lt_ogg_held_bytes(const lt::OggReader* r) {
+  return (int64_t)r->held.size();
 }
 
 void lt_ogg_free(lt::OggReader* r) { delete r; }

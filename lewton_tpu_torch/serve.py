@@ -41,7 +41,7 @@ import numpy as np
 from . import profiling
 from .header import read_header_ident, read_header_setup
 from .models.decoder import StreamDecoder, predict_out_lens
-from .ogg.demux import IncrementalPacketReader
+from .native import NativeIncrementalReader
 from .ops.windowing import init_window_carry
 from .parallel.batch import TransferSlots
 from .parallel.pack12 import p12_auto
@@ -62,7 +62,7 @@ class _StreamState:
     #: stream keeps going (bad packets emit no PCM and leave the window
     #: state untouched, the reference's per-packet semantics)
     errors: list = field(default_factory=list)
-    reader: object = None  # IncrementalPacketReader for fed streams
+    reader: object = None  # the stream's NativeIncrementalReader
     serial: int | None = None
     #: dispatched-but-uncollected PCM slices referencing this stream —
     #: is_done must stay False while any are in flight (the pipeline keeps
@@ -348,7 +348,7 @@ class StreamingScheduler:
         with profiling.span("serve.register", sid) as sp:
             if sp is not None:
                 profiling.count("serve.requests", 1)
-            rdr = IncrementalPacketReader()
+            rdr = NativeIncrementalReader()
             # reader, serial, header packets, registration stamp
             self.pending[sid] = [rdr, None, [], _time.perf_counter()]
             if ogg_bytes is not None:

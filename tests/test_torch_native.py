@@ -28,6 +28,11 @@ The comparisons:
   ``seek_absgp``) against the port's Python ``PacketReader`` on the 38
   committed gate streams and the corpus file they leave out (chained and
   multi-page streams among them);
+- ``NativeIncrementalReader`` (the scheduler's reader) against the port's
+  Python ``IncrementalPacketReader``, both fed whole and in steps of 1,
+  17, 555 and 777 bytes, on those streams and on damaged ones (a broken
+  CRC, junk between pages, a truncated tail, sequence holes, garbage,
+  nothing), and the bytes it holds between feeds;
 - the frames and status of every audio packet of those streams from the
   native front-end against the port's Python front-end and against the
   reference's native library, in f32, i16 and p12 emit, through the
@@ -42,6 +47,7 @@ The comparisons:
 
 import fcntl
 import os
+import struct
 import subprocess
 
 import numpy as np
@@ -55,7 +61,8 @@ from lewton_tpu_torch import _build
 from lewton_tpu_torch import native
 from lewton_tpu_torch.inside_ogg import read_headers
 from lewton_tpu_torch.models.decoder import StreamDecoder
-from lewton_tpu_torch.ogg import PacketReader
+from lewton_tpu_torch.ogg import PacketReader, crc32_ogg
+from lewton_tpu_torch.ogg.demux import IncrementalPacketReader
 from lewton_tpu_torch.parallel import pack12 as tpack12
 from lewton_tpu_torch.parallel.batch import BatchDecoder
 from test_torch_frontend import MUTATIONS, STREAMS, stream_bytes
@@ -148,6 +155,129 @@ def test_seek_matches_python(name):
         py.seek_absgp(target)
         nat.seek_absgp(target)
         _same_packets(_packets(nat), _packets(py))
+
+
+def _fed(rdr, data: bytes, step: int | None) -> tuple[list, int]:
+    """Feed ``data`` whole (step None) or in pieces of ``step`` bytes,
+    reading the packets after each feed as the scheduler does; returns
+    (packets, pages_read)."""
+    step = step or max(len(data), 1)
+    out = []
+    for i in range(0, max(len(data), 1), step):
+        rdr.feed(data[i:i + step])
+        out += _packets(rdr)
+    return out, rdr.pages_read
+
+
+def _same_fed(data: bytes, step: int | None) -> None:
+    """The native incremental reader against the Python one, fed alike."""
+    want, pages = _fed(IncrementalPacketReader(), data, step)
+    mine, native_pages = _fed(native.NativeIncrementalReader(), data, step)
+    _same_packets(mine, want)
+    assert native_pages == pages
+
+
+@pytest.mark.parametrize("step", [None, 1, 17, 555, 777])
+@pytest.mark.parametrize("data", STREAMS, indirect=True)
+def test_incremental_reader_matches_python(data, step):
+    """NativeIncrementalReader fed whole and in steps: the Python
+    IncrementalPacketReader's packets, in order, and its pages."""
+    _same_fed(data, step)
+
+
+def _small_pages(data: bytes, max_segs: int = 2) -> bytes:
+    """The stream's packets laced again into pages of at most ``max_segs``
+    lacing values (right CRCs; a page's granule is the index of the last
+    packet it completes, or -1), so packets span pages."""
+    pcks = _packets(PacketReader(data))
+    laces = []  # (lacing value, index of the packet it ends or None, bytes)
+    for i, p in enumerate(pcks):
+        d = p.data
+        whole = len(d) // 255 * 255
+        laces += [(255, None, d[j:j + 255]) for j in range(0, whole, 255)]
+        laces.append((len(d) - whole, i, d[whole:]))
+    out, continued = bytearray(), False
+    for seq, k in enumerate(range(0, len(laces), max_segs)):
+        group = laces[k:k + max_segs]
+        ends = [i for _, i, _ in group if i is not None]
+        flags = (continued | (2 if k == 0 else 0)
+                 | (4 if k + max_segs >= len(laces) else 0))
+        head = struct.pack("<4sBBQIII", b"OggS", 0, flags,
+                           ends[-1] if ends else (1 << 64) - 1,
+                           pcks[0].stream_serial, seq, 0)
+        head += bytes([len(group), *(v for v, _, _ in group)])
+        body = b"".join(b for _, _, b in group)
+        crc = struct.pack("<I", crc32_ogg(head + body))
+        out += head[:22] + crc + head[26:] + body
+        continued = group[-1][0] == 255
+    return bytes(out)
+
+
+def _page_starts(data: bytes) -> list[int]:
+    """Byte offsets of a clean stream's pages, and its length last."""
+    starts = [0]
+    while starts[-1] < len(data):
+        s = starts[-1]
+        nsegs = data[s + 26]
+        starts.append(s + 27 + nsegs + sum(data[s + 27:s + 27 + nsegs]))
+    return starts
+
+
+def _hole(data: bytes, drop: bool) -> bytes:
+    """Small pages with a page that carries only a middle fragment of a
+    packet broken (its CRC) or dropped: a sequence hole."""
+    small = _small_pages(data)
+    starts = _page_starts(small)
+    for s, e in zip(starts, starts[1:]):
+        nsegs = small[s + 26]
+        if small[s + 5] & 1 and small[s + 26 + nsegs] == 255:
+            if drop:
+                return small[:s] + small[e:]
+            return small[:s + 30] + bytes([small[s + 30] ^ 0xFF]) + small[
+                s + 31:]
+    raise AssertionError("no page carries a middle fragment")
+
+
+def _damaged(kind: str) -> bytes:
+    data = stream_bytes("stereo_44k_q3")
+    starts = _page_starts(data)
+    if kind == "crc":
+        mid = starts[len(starts) // 2] + 40
+        return data[:mid] + bytes([data[mid] ^ 0x40]) + data[mid + 1:]
+    if kind == "junk":
+        return (data[:starts[2]] + b"\xde\xad\xbe\xef" * 8 + b"OggS\x01junk"
+                + b"Ogg" + data[starts[2]:])
+    if kind == "truncate":
+        return data[:starts[-2] + (starts[-1] - starts[-2]) // 2]
+    if kind in ("hole", "hole_dropped"):
+        return _hole(stream_bytes("mono_16k_q3"), kind == "hole_dropped")
+    if kind == "garbage":
+        return b"\x00" * 1000 + b"OggS" + b"\xff" * 100
+    assert kind == "empty"
+    return b""
+
+
+@pytest.mark.parametrize("step", [1, 555])
+@pytest.mark.parametrize("kind", ["crc", "junk", "truncate", "hole",
+                                  "hole_dropped", "garbage", "empty"])
+def test_incremental_reader_matches_python_on_damage(kind, step):
+    """Broken CRCs, junk between pages (a false capture among it),
+    truncated tails, sequence holes (a pending head dropped, never
+    spliced), garbage and nothing: the Python reader's packets."""
+    _same_fed(_damaged(kind), step)
+
+
+def test_incremental_reader_holds_under_a_page(corpus_dir):
+    """Fed a long stream in 4 KB pieces, the native reader holds less
+    than its largest page after every feed, and nothing at the end."""
+    data = stream_bytes("long_44k_q2", corpus_dir)
+    starts = _page_starts(data)
+    largest = max(b - a for a, b in zip(starts, starts[1:]))
+    rdr = native.NativeIncrementalReader()
+    for i in range(0, len(data), 4096):
+        rdr.feed(data[i:i + 4096])
+        assert rdr.held_bytes < largest
+    assert rdr.held_bytes == 0
 
 
 def _first_link(data: bytes):

@@ -31,6 +31,7 @@ from benchmark.harness.tracer import self_share
 from lewton_tpu_torch import native, profiling
 from lewton_tpu_torch.header import read_header_ident, read_header_setup
 from lewton_tpu_torch.ogg import PacketReader
+from lewton_tpu_torch.ogg.demux import IncrementalPacketReader
 from lewton_tpu_torch.parallel import graphs
 from lewton_tpu_torch.parallel.batch import BatchDecoder, TransferSlots
 from lewton_tpu_torch.profiling import Count, Span
@@ -196,6 +197,35 @@ def test_serve_spans_nest_and_share_the_request_id():
         pass
     assert c["ogg.pages"] == 2 * total.pages_read > 0
     assert 0 < c["frontend.busy_ns"] <= c["frontend.wall_ns"]
+
+
+def test_serve_reads_pages_natively():
+    """Every reader of the scheduler is the native one: a request's reads
+    are still ``ogg.read`` spans, their ``ogg.bytes`` and ``ogg.pages``
+    the Python reader's, and ``ogg.native_bytes`` counts every byte."""
+    data = _bytes()
+    sched = StreamingScheduler(capacity=4, chunk=CHUNK, device="cpu")
+    with _cpu_profile():
+        sched.add_stream("a", data)
+        sched.add_stream("b")
+        readers = [sched.pending["b"][0]]
+        for i in range(0, len(data), 555):
+            sched.feed("b", data[i:i + 555])
+        readers += [st.reader for _, st in sched.streams.values()]
+        while sched.step():
+            pass
+    assert len(readers) == 3 and readers[0] is readers[2]
+    assert all(isinstance(r, native.NativeIncrementalReader)
+               for r in readers)
+    assert {s.rid for s in _spans() if s.name == "ogg.read"} == {"a", "b"}
+    python = IncrementalPacketReader()
+    for i in range(0, len(data), 555):
+        python.feed(data[i:i + 555])
+        while python.read_packet() is not None:
+            pass
+    c = _counts()
+    assert c["ogg.bytes"] == c["ogg.native_bytes"] == 2 * len(data)
+    assert c["ogg.pages"] == 2 * python.pages_read > 0
 
 
 def test_batch_spans_nest_and_count_the_padded_slots():
