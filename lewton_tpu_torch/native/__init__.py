@@ -45,8 +45,9 @@ _FRAME_ARGS = {res: [_i32p, _u8p, _u8p, _u8p, res, _u8p, _i32p, _u8p, _f32p,
                for res in (_f32p, _i16p, _u32p)}
 _EMIT = {"": _f32p, "_i16": _i16p, "_p12": _u32p}
 #: the batch entries' last arguments: worker threads, then the workers'
-#: busy ns (one slot a worker) and the call's wall ns x workers, or nulls
-_BATCH_TAIL = [C.c_int, _u64p, _u64p]
+#: busy ns (one slot a worker), the call's wall ns x workers and the
+#: workers' type-2 deinterleave ns (one slot a worker), or nulls
+_BATCH_TAIL = [C.c_int, _u64p, _u64p, _u64p]
 #: residue dtype -> (entry suffix, C element type)
 _RESIDUE_CT = {np.dtype(np.float32): ("", C.c_float),
                np.dtype(np.int16): ("_i16", C.c_int16),
@@ -358,22 +359,27 @@ class NativeStream:
 
 
 def _run_batch(fn, args: tuple, threads: int) -> None:
-    """Call the batch entry ``fn(*args, threads, busy, wall)`` in a
-    ``frontend.entropy`` span. While the tracer records, the workers' busy
-    ns and the call's wall ns x workers go to the counters
-    ``frontend.busy_ns`` and ``frontend.wall_ns``; else the entry gets
-    nulls and times nothing."""
+    """Call the batch entry ``fn(*args, threads, busy, wall, deinterleave)``
+    in a ``frontend.entropy`` span. While the tracer records, the workers'
+    busy ns, the call's wall ns x workers and the workers' ns spent
+    clearing and deinterleaving the type-2 residue scratch (submaps that do
+    not take the stereo direct write) go to the counters
+    ``frontend.busy_ns``, ``frontend.wall_ns`` and
+    ``frontend.deinterleave_ns``; else the entry gets nulls and times
+    nothing."""
     sp = profiling.begin("frontend.entropy")
     if sp is None:
-        fn(*args, int(threads), None, None)
+        fn(*args, int(threads), None, None, None)
         return
     try:
         busy = np.zeros(max(1, int(threads)), np.uint64)
         wall = np.zeros(1, np.uint64)
+        deint = np.zeros_like(busy)
         fn(*args, int(threads), _ptr(busy, C.c_uint64),
-           _ptr(wall, C.c_uint64))
+           _ptr(wall, C.c_uint64), _ptr(deint, C.c_uint64))
         profiling.count("frontend.busy_ns", int(busy.sum()))
         profiling.count("frontend.wall_ns", int(wall[0]))
+        profiling.count("frontend.deinterleave_ns", int(deint.sum()))
     finally:
         profiling.end(sp)
 

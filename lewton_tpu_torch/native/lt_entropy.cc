@@ -634,6 +634,17 @@ static int decode_packet_head(Stream* st, const uint8_t* pck, size_t len,
   return LT_OK;
 }
 
+// The calling worker's slot of frontend.deinterleave_ns: split_streams
+// points it at the caller's per-worker counter for the worker's block when
+// one is given, else it stays null and no clock is read.
+thread_local uint64_t* tl_deinterleave_ns = nullptr;
+
+static inline uint64_t steady_ns() {
+  return (uint64_t)std::chrono::duration_cast<std::chrono::nanoseconds>(
+             std::chrono::steady_clock::now().time_since_epoch())
+      .count();
+}
+
 // Residue section: decodes into the (already zeroed) residue rows.
 // sc.no_residue must hold the head's propagated flags.
 static int decode_packet_residues(Stream* st, BitCursor& cur,
@@ -673,7 +684,13 @@ static int decode_packet_residues(Stream* st, BitCursor& cur,
       float* __restrict dr0 = residue + (size_t)chans[0] * rw;
       float* __restrict dr1 =
           residue + (size_t)chans[ch_cnt > 1 ? 1 : 0] * rw;
-      if (!direct2) inter.assign(actual, 0.0f);
+      // time clearing and deinterleaving `inter` (frontend.deinterleave_ns)
+      uint64_t* const deint_ns = direct2 ? nullptr : tl_deinterleave_ns;
+      if (!direct2) {
+        const uint64_t a = deint_ns ? steady_ns() : 0;
+        inter.assign(actual, 0.0f);
+        if (deint_ns) *deint_ns += steady_ns() - a;
+      }
       const Codebook& classbook = st->setup.codebooks[r.classbook];
       uint32_t cpc = classbook.dimensions;
       uint32_t n_to_read = end - begin;
@@ -802,6 +819,7 @@ static int decode_packet_residues(Stream* st, BitCursor& cur,
         cur.sync_in(rg.acc, rg.nbits, rg.pos);
       }
       if (!direct2) {
+        const uint64_t a = deint_ns ? steady_ns() : 0;
 #ifndef LT_NO_DEINT  // bench-only knockout for cost attribution
         // deinterleave: channel j takes every ch-th value starting at j
         for (uint32_t k = 0; k < ch_cnt; ++k) {
@@ -810,6 +828,7 @@ static int decode_packet_residues(Stream* st, BitCursor& cur,
             dst[o] = inter[i];
         }
 #endif
+        if (deint_ns) *deint_ns += steady_ns() - a;
       }
     } else {
       // types 0/1: per-channel
@@ -1629,14 +1648,17 @@ int lt_decode_chunk_p12(Stream* st, const uint8_t* buf, const uint64_t* offs,
 // decode loop at production shapes). The "_p12" entries' packet residue
 // stride is 3*(C*rw)/8 u32 words, not C*rw.
 //
-// busy_ns and wall_ns may be null. When given, busy_ns[k] receives worker
-// k's time inside its block of streams, one slot per worker
+// busy_ns, wall_ns and deint_ns may be null. When given, busy_ns[k]
+// receives worker k's time inside its block of streams, one slot per worker
 // (min(n_threads, S) workers, 1 when n_threads <= 1 or S <= 1), and
 // *wall_ns the call's wall time times its worker count, both from
-// steady_clock: their ratio is the workers' fill.
+// steady_clock: their ratio is the workers' fill. deint_ns[k] receives
+// worker k's time spent clearing and deinterleaving the type-2 scratch of
+// submaps that do not take the stereo direct write (decode_packet_residues).
 template <typename Run>
 static void split_streams(int S, int n_threads, uint64_t* busy_ns,
-                          uint64_t* wall_ns, const Run& run) {
+                          uint64_t* wall_ns, uint64_t* deint_ns,
+                          const Run& run) {
   using clk = std::chrono::steady_clock;
   const auto ns = [](clk::duration d) {
     return (uint64_t)std::chrono::duration_cast<std::chrono::nanoseconds>(d)
@@ -1649,7 +1671,9 @@ static void split_streams(int S, int n_threads, uint64_t* busy_ns,
     const int s0 = (int)((int64_t)S * k / nt);
     const int s1 = (int)((int64_t)S * (k + 1) / nt);
     const auto a = clk::now();
+    lt::tl_deinterleave_ns = deint_ns ? deint_ns + k : nullptr;
     for (int s = s0; s < s1; ++s) run(s);
+    lt::tl_deinterleave_ns = nullptr;
     if (busy_ns) busy_ns[k] = ns(clk::now() - a);
   };
   if (nt == 1) {
@@ -1676,10 +1700,10 @@ static void split_streams(int S, int n_threads, uint64_t* busy_ns,
            uint8_t* prevf, uint8_t* nextf, uint8_t* status, RES* residue,   \
            uint8_t* f_kind, int32_t* f1_ys, uint8_t* f1_flags,              \
            float* f0_cosc, float* f0_amp, int rw, int n_threads,            \
-           uint64_t* busy_ns, uint64_t* wall_ns) {                          \
+           uint64_t* busy_ns, uint64_t* wall_ns, uint64_t* deint_ns) {      \
     const size_t C = st->channels, P = st->P, Om = st->Omax;                \
     const size_t R = (size_t)rw;                                            \
-    split_streams(S, n_threads, busy_ns, wall_ns, [&](int s) {              \
+    split_streams(S, n_threads, busy_ns, wall_ns, deint_ns, [&](int s) {    \
       const size_t b = (size_t)s * T;                                       \
       CHUNK_FN(st, BUF_OF, offs + b, lens + b, counts[s],                   \
                LT_STREAM_FRAMES(RK));                                       \

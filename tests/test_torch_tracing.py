@@ -454,12 +454,12 @@ def test_native_busy_counters_only_when_asked(threads):
     out = ns.frame_buffers(CHUNK, lead=(S,))
     fn = ns._entry(out["residue"], "_batch_v")
 
-    def call(busy, wall):
+    def call(busy, wall, deint=None):
         status = np.zeros((S, CHUNK), np.uint8)
         fn(ns._h, bufs.ctypes.data_as(C.POINTER(C.c_void_p)),
            native._ptr(offs, C.c_uint64), native._ptr(lens, C.c_uint64),
            native._ptr(counts, C.c_int32), S, CHUNK,
-           *ns._frame_args(out, status), threads, busy, wall)
+           *ns._frame_args(out, status), threads, busy, wall, deint)
         return status
 
     plain = call(None, None)
@@ -472,3 +472,8 @@ def test_native_busy_counters_only_when_asked(threads):
     assert (busy[workers:] == sentinel).all()
     assert (busy[:workers] != sentinel).all() and wall[0] != sentinel
     assert 0 < int(busy[:workers].sum()) <= int(wall[0])
+    # the deinterleave slots: added to, one a worker, only when given
+    deint = np.zeros(threads + 2, np.uint64)
+    deint[workers:] = sentinel
+    assert (call(None, None, native._ptr(deint, C.c_uint64)) == plain).all()
+    assert (deint[workers:] == sentinel).all()
