@@ -21,7 +21,8 @@ three flat buffers (one per dtype) beside the residue, which may be 12-bit
 packed (``pack12.py``), and are re-viewed on the device
 (:func:`unpack_frame_buffers`). :class:`BatchDecoder` is the serving-shaped
 entry: each stream's packets in, PCM per stream out, its host front-end
-pipelined against the device through pinned double buffers, non-blocking
+pipelined against the device through pinned double buffers (the native
+front-end writes its frames into them, already packed), non-blocking
 copies and a side stream for the device-to-host copies
 (:class:`TransferSlots`, which ``serve.StreamingScheduler``'s groups use
 too). Each group of chunks goes through a program of the transfer slots:
@@ -481,14 +482,21 @@ _MISC_I32 = ("mode", "f1_ys")
 _MISC_F32 = ("f0_cosc", "f0_amp")
 
 
+#: the leaves of each packed buffer, in the order they lie in it
+_PACKED = (("residue",), _MISC_BOOL, _MISC_I32, _MISC_F32)
+
+
+def _frame_shapes(fr_np: dict) -> tuple:
+    """(name, shape) of every leaf in the packed buffers' order."""
+    return tuple((k, tuple(fr_np[k].shape)) for keys in _PACKED
+                 for k in keys)
+
+
 def pack_frame_buffers(fr_np: dict):
     """(residue, u8 buf, i32 buf, f32 buf, shapes) of numpy frames; shapes
     carries every leaf's shape, the residue's true one included, so a
     12-bit packed residue can be restored on the device."""
-    shapes = tuple(
-        (k, tuple(fr_np[k].shape))
-        for k in ("residue",) + _MISC_BOOL + _MISC_I32 + _MISC_F32
-    )
+    shapes = _frame_shapes(fr_np)
     b = np.concatenate([fr_np[k].reshape(-1).view(np.uint8)
                         for k in _MISC_BOOL])
     i = np.concatenate([fr_np[k].reshape(-1) for k in _MISC_I32])
@@ -656,9 +664,12 @@ class _Stages:
 class TransferSlots:
     """The host buffers of a decode pipelined against ``sd``'s device, kept
     per slot of a double buffer and reused: the native frame buffers per
-    (slot, N), pinned host-to-device buffers with an event after each
-    slot's last copies, pinned device-to-host buffers copied into on a
-    side stream with an event per copy, and the decode programs
+    (slot, N), views into four flat blocks laid out as the packed buffers
+    and pinned on a card, so that the front-end writes the bytes the
+    host-to-device copies read (other frames are staged through pinned
+    buffers of the slot); an event after each slot's last copies in,
+    pinned device-to-host buffers copied into on a side stream with an
+    event per copy, and the decode programs
     (``programs``, a ``graphs.Programs``): one per (slot, N, output
     length, layout). The programs of one
     slot and N write their PCM into one device buffer, sized for the
@@ -674,9 +685,10 @@ class TransferSlots:
     def __init__(self, sd: StreamDecoder):
         self.sd = sd
         self.device = sd.device
-        self.pinned: dict = {}  # (slot, array index) -> pinned bytes
+        self.pinned: dict = {}  # (slot, array index) -> pinned staging
         self.put_done: dict = {}  # slot -> event after its last copies
         self.frames: dict = {}  # (slot, N) -> native frame buffers
+        self.blocks: dict = {}  # (slot, N) -> the frames' four flat blocks
         self.pinned_d2h: dict = {}  # slot -> pinned bytes of the PCM
         self.d2h_done: dict = {}  # slot -> event after its last copy
         self.d2h_stream = None
@@ -684,26 +696,30 @@ class TransferSlots:
         self.pcm: dict = {}  # (slot, N, S, T, route) -> device PCM buffer
 
     def put(self, slot: int, arrays, into: tuple) -> tuple:
-        """Host-to-device copies of ``arrays`` through slot ``slot`` of the
-        pinned double buffer straight into ``into`` (a program's static
-        inputs, of the arrays' shapes and dtypes), which it returns: the
-        slot is rewritten only after the copies that last read it have
-        finished (their event), and the copies do not block the host."""
+        """Host-to-device copies of ``arrays`` through slot ``slot`` straight
+        into ``into`` (a program's static inputs, of the arrays' shapes and
+        dtypes), which it returns: an array that is a whole block of the
+        slot's frame buffers is sent from it, any other is first copied
+        into the slot's pinned staging. The slot's memory is rewritten only
+        after the copies that last read it have finished (their event), and
+        the copies do not block the host."""
         if self.device.type != "cuda":
             for d, a in zip(into, arrays):
                 d.copy_(torch.from_numpy(a))
             return into
         self.wait_put(slot)
         for j, a in enumerate(arrays):
-            key = (slot, j)
-            host = self.pinned.get(key)
-            if host is None or host.numel() * host.element_size() < a.nbytes:
-                host = torch.empty(a.nbytes, dtype=torch.uint8,
-                                   pin_memory=True)
-                self.pinned[key] = host
+            host = block = self._block(slot, a)
+            if host is None:
+                host = self.pinned.get((slot, j))
+                if host is None or host.numel() < a.nbytes:
+                    host = torch.empty(a.nbytes, dtype=torch.uint8,
+                                       pin_memory=True)
+                    self.pinned[(slot, j)] = host
             view = host[: a.nbytes].view(
                 torch.from_numpy(a[:0]).dtype).reshape(a.shape)
-            view.numpy()[...] = a
+            if block is None:
+                view.numpy()[...] = a
             into[j].copy_(view, non_blocking=True)
         self.put_done[slot] = torch.cuda.Event()
         self.put_done[slot].record()
@@ -730,9 +746,40 @@ class TransferSlots:
         buf = self.frames.get((slot, N))
         if (buf is None or buf["mode"].shape[1] != S
                 or buf["residue"].dtype != sd._native.residue_dtype):
-            buf = sd._native.frame_buffers(sd.chunk, lead=(N, S))
-            self.frames[(slot, N)] = buf
+            buf = self._frame_blocks(slot, N, S)
         return buf
+
+    def _frame_blocks(self, slot: int, N: int, S: int) -> dict:
+        """Zeroed native frame buffers [N, S, T, ...] for (slot, N): views
+        into four flat byte blocks (pinned on a card), the residue, then
+        the bool, i32 and f32 leaves, each leaf after the one before in
+        :func:`pack_frame_buffers`' order, so that each block holds the
+        bytes of one packed buffer."""
+        layout = self.sd._native._frame_layout(self.sd.chunk)
+        views, blocks = {}, []
+        for keys in _PACKED:
+            sizes = [int(np.prod((N, S) + layout[k][0]))
+                     * np.dtype(layout[k][1]).itemsize for k in keys]
+            block = torch.zeros(sum(sizes), dtype=torch.uint8,
+                                pin_memory=self.device.type == "cuda")
+            raw, off = block.numpy(), 0
+            for k, n in zip(keys, sizes):
+                shape, dt = layout[k]
+                views[k] = raw[off: off + n].view(dt).reshape((N, S) + shape)
+                off += n
+            blocks.append(block)
+        buf = {k: views[k] for k in layout}
+        self.frames[(slot, N)] = buf
+        self.blocks[(slot, N)] = tuple(blocks)
+        return buf
+
+    def _block(self, slot: int, a: np.ndarray) -> torch.Tensor | None:
+        """The block of ``slot``'s frame buffers that ``a`` spans whole (the
+        same first byte and size), or None."""
+        p = a.ctypes.data
+        return next((b for (s, _), blocks in self.blocks.items() if s == slot
+                     for b in blocks
+                     if b.data_ptr() == p and b.numel() == a.nbytes), None)
 
     def to_host_async(self, pcm: torch.Tensor, slot: int):
         """Start the device-to-host copy of ``pcm`` into the pinned buffer
@@ -770,7 +817,9 @@ class TransferSlots:
         """One group of N chunks through ``slot``: pack the host frames
         ``fr`` [N, S, T, ...] (the residue's 12-bit planes travel as int32
         with ``p12``), copy them in, enqueue the decode and start the PCM's
-        copy out. ``compact="device"`` decodes with ``compact_cap``, one
+        copy out. The slot's own frame buffers (:meth:`frame_slot` on the
+        native front-end) are packed already: their blocks are sent as they
+        are. ``compact="device"`` decodes with ``compact_cap``, one
         output length bucketed from the packet lengths ``lens`` [N, S, T];
         ``compact="host"`` takes the i16 path's padded chunk. ``lap(stage,
         device_work)`` marks the ends of packing, the copy in and the
@@ -786,9 +835,16 @@ class TransferSlots:
         if pack is not None:
             profiling.count("transfer.slots", lens.size)
             profiling.count("transfer.packets", np.count_nonzero(fr["valid"]))
+        blocks = (self.blocks[(slot, N)] if fr is self.frames.get((slot, N))
+                  else None)
         if N == 1:
             fr = {k: v[0] for k, v in fr.items()}
-        residue, bb, ib, fb, shapes = pack_frame_buffers(fr)
+        if blocks is None:
+            residue, bb, ib, fb, shapes = pack_frame_buffers(fr)
+        else:
+            residue, shapes = fr["residue"], _frame_shapes(fr)
+            bb, ib, fb = (b.numpy().view(dt) for b, dt in zip(
+                blocks[1:], (np.uint8, np.int32, np.float32)))
         if p12:
             if residue.dtype == np.uint32:
                 # the native front-end emitted the planes: the device
@@ -799,6 +855,12 @@ class TransferSlots:
                 residue = pack12_np(residue)
             residue = residue.view(np.int32)
         arrays = (residue, bb, ib, fb)
+        if pack is not None:
+            direct = sum(a.nbytes for a in arrays
+                         if self._block(slot, a) is not None)
+            profiling.count("transfer.direct_bytes", direct)
+            profiling.count("transfer.staged_bytes",
+                            sum(a.nbytes for a in arrays) - direct)
         # "host": the i16 path's padded chunk; "device": a host int, one
         # bucketed output length for all N chunks, keeps the output
         # shapes (and so the programs) few

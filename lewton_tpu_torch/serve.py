@@ -14,10 +14,11 @@ stable. Idle slots ride along as ``valid=False`` packets, which the
 pipeline treats as no-ops.
 
 A step runs the reference's route: the native front-end entropy-decodes the
-group's packets (one call per sub-chunk), the frames travel packed
-(``parallel.batch.pack_frame_buffers``, the residue 12-bit packed on a slow
-link), the group's chunk program decodes them with ``compact_cap`` (K1's
-flat form, the IMDCT GEMM, the f32 overlap-add, ``compact_i16``; the
+group's packets (one call per sub-chunk) into the transfer slot's pinned
+blocks, which hold the frames packed (``parallel.batch.pack_frame_buffers``'
+layout, the residue 12-bit packed on a slow link), the group's chunk
+program decodes them with ``compact_cap`` (K1's flat form, the IMDCT GEMM,
+the f32 overlap-add, ``compact_i16``; the
 reference's ``decode_chunk_batch_packed`` / ``decode_chunks_scan_packed``,
 here one CUDA graph per (buffer slot, N, output length), ``parallel.graphs``)
 and the compacted i16 PCM comes back. The packing, the copies and the

@@ -8,7 +8,8 @@
   ``prof.events()`` nest the same way; self time (the benchmark's reader)
   is a span's duration less its children's, as the profiler's ranges give
   it; ``transfer.packets`` / ``transfer.slots`` is the padded fill of a
-  ragged batch; graph replays and first uses are one span each; waits on
+  ragged batch, and the native route sends every byte from the slots'
+  blocks (``transfer.direct_bytes``), none staged; graph replays and first uses are one span each; waits on
   CUDA events are ``wait`` spans.
 - The ring keeps its bound; ``idle_by_span`` splits a synthetic profile's
   idle time by innermost span; ``trace`` writes the ranges and counters.
@@ -244,6 +245,9 @@ def test_batch_spans_nest_and_count_the_padded_slots():
     c = _counts()
     assert c["transfer.slots"] == groups * 3 * CHUNK
     assert c["transfer.packets"] == 52 + 17 + 5
+    # the native front-end wrote the slots' blocks: nothing is staged
+    assert c["transfer.staged_bytes"] == 0
+    assert c["transfer.direct_bytes"] == dec.last_stats["h2d_bytes"] > 0
     assert c["native.demux_bytes"] == len(data)
     assert 0 < c["frontend.busy_ns"] <= c["frontend.wall_ns"]
     assert "stages" in dec.last_stats  # the stage timer is left as it was
