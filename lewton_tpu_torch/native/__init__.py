@@ -75,6 +75,8 @@ def _load():
     lib.lt_decode_chunk.argtypes = _CHUNK_ARGS
     lib.lt_ogg_new.restype = C.c_void_p
     lib.lt_ogg_new.argtypes = [_u8p, C.c_size_t]
+    lib.lt_ogg_new_into.restype = C.c_void_p
+    lib.lt_ogg_new_into.argtypes = [_u8p, C.c_size_t, _u8p]
     lib.lt_ogg_free.argtypes = [C.c_void_p]
     lib.lt_ogg_packet_count.restype = C.c_int64
     lib.lt_ogg_packet_count.argtypes = [C.c_void_p]
@@ -387,34 +389,44 @@ class PacketSpans:
         return PacketSpans(blob, np.cumsum(lens) - lens, lens)
 
 
-def _packet_arrays(lib, h, count: int):
-    """(blob, lens, serials, flags, absgp, page granules) of the ``count``
+def _packet_meta(lib, h, count: int):
+    """(lens, serials, flags, absgp, page granules) of the ``count``
     packets a native Ogg handle holds."""
-    lens = np.zeros(count, np.uint64)
-    serials = np.zeros(count, np.uint32)
-    flags = np.zeros(count, np.uint8)
-    absgp = np.zeros(count, np.uint64)
-    pgran = np.zeros(count, np.uint64)
+    lens = np.empty(count, np.uint64)
+    serials = np.empty(count, np.uint32)
+    flags = np.empty(count, np.uint8)
+    absgp = np.empty(count, np.uint64)
+    pgran = np.empty(count, np.uint64)
     lib.lt_ogg_packet_meta(h, _ptr(lens, C.c_uint64),
                            _ptr(serials, C.c_uint32), _u8(flags),
                            _ptr(absgp, C.c_uint64), _ptr(pgran, C.c_uint64))
-    blob = np.zeros(max(int(lens.sum()), 1), np.uint8)
+    return lens, serials, flags, absgp, pgran
+
+
+def _packet_arrays(lib, h, count: int):
+    """(blob, lens, serials, flags, absgp, page granules) of the ``count``
+    packets a native Ogg handle holds."""
+    meta = _packet_meta(lib, h, count)
+    blob = np.empty(max(int(meta[0].sum()), 1), np.uint8)
     lib.lt_ogg_packet_data(h, _u8(blob))
-    return blob, lens, serials, flags, absgp, pgran
+    return (blob, *meta)
 
 
 def _demux(data: bytes):
     """(blob, lens, serials, flags, absgp, page granules) of every packet
-    of an Ogg byte stream, from one native demux."""
+    of an Ogg byte stream, from one native demux, which writes the packets'
+    bytes straight into the blob (a stream's packets never outgrow it)."""
     lib = _load()
     src = np.frombuffer(data, dtype=np.uint8)
-    h = lib.lt_ogg_new(_u8(src), len(data))
+    blob = np.empty(max(len(data), 1), np.uint8)
+    h = lib.lt_ogg_new_into(_u8(src), len(data), _u8(blob))
     if not h:
         raise OggError("native ogg demux failed (allocation)")
     try:
-        return _packet_arrays(lib, h, lib.lt_ogg_packet_count(h))
+        meta = _packet_meta(lib, h, lib.lt_ogg_packet_count(h))
     finally:
         lib.lt_ogg_free(h)
+    return (blob[:max(int(meta[0].sum()), 1)], *meta)
 
 
 def decode_ogg_i16_rc(data: bytes, channels: int, n1: int):
@@ -542,12 +554,16 @@ def demux_spans(data: bytes):
     serials u32 [n], flags u8 [n], absgp u64 [n], page granules u64 [n]);
     the packet bytes stay in one blob. Flags: bit 0 first in stream, 1 last
     in stream, 2 first in page, 3 last in page, 4 has absgp, 5 has a page
-    granule, 6 began on an earlier page."""
+    granule, 6 began on an earlier page. Traced, it counts the bytes and
+    the packets it demuxed (``native.demux_bytes``,
+    ``native.demux_packets``)."""
     sp = profiling.begin("native.demux")  # called for every file
     try:
         if sp is not None:
             profiling.count("native.demux_bytes", len(data))
         blob, lens, serials, flags, absgp, pgran = _demux(data)
+        if sp is not None:
+            profiling.count("native.demux_packets", len(lens))
     finally:
         profiling.end(sp)
     return (PacketSpans(blob, np.cumsum(lens) - lens, lens), serials, flags,

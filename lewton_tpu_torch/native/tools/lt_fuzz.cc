@@ -9,6 +9,11 @@
 // demuxes and fully decodes seed .ogg files plus deterministic mutations
 // (truncations, bit flips, region scrambles) — any overflow/UB aborts.
 //
+// Each variant's packets also come through lt_ogg_new_into (written into a
+// buffer of the input's length) and through a fed stream (lt_ogg_stream_*,
+// in pieces of 1 to 4096 bytes); a packet, length, serial, flag or granule
+// that differs from lt_ogg_new's aborts as a finding does.
+//
 // Usage: lt_fuzz FILE.ogg [FILE2.ogg ...]
 //   LT_FUZZ_SEED=N   mutation RNG seed (default 0x1234567) — multi-seed
 //                    campaigns sweep different flip/scramble sites
@@ -29,6 +34,9 @@ int64_t lt_ogg_packet_count(const OggReaderOpaque*);
 void lt_ogg_packet_meta(const OggReaderOpaque*, uint64_t*, uint32_t*,
                         uint8_t*, uint64_t*, uint64_t*);
 void lt_ogg_packet_data(const OggReaderOpaque*, uint8_t*);
+OggReaderOpaque* lt_ogg_new_into(const uint8_t*, size_t, uint8_t*);
+OggReaderOpaque* lt_ogg_stream_new();
+int64_t lt_ogg_stream_feed(OggReaderOpaque*, const uint8_t*, size_t);
 struct DecoderOpaque;
 DecoderOpaque* lt_decoder_new(const uint8_t*, size_t, const uint8_t*, size_t,
                               char*, size_t);
@@ -57,7 +65,66 @@ static uint32_t rng() {
   return rng_state;
 }
 
+// The packets of a demux handle, appended to `out`: per packet its length,
+// serial, flags, absgp and page granule, then its bytes, read from `blob`
+// (lt_ogg_new_into's buffer) or copied out by lt_ogg_packet_data.
+static void append_packets(const OggReaderOpaque* ogg,
+                           std::vector<uint64_t>& out,
+                           const uint8_t* blob = nullptr) {
+  int64_t n = lt_ogg_packet_count(ogg);
+  if (n <= 0) return;
+  std::vector<uint64_t> lens(n), absgp(n), pgran(n);
+  std::vector<uint32_t> serials(n);
+  std::vector<uint8_t> flags(n);
+  lt_ogg_packet_meta(ogg, lens.data(), serials.data(), flags.data(),
+                     absgp.data(), pgran.data());
+  uint64_t total = 0;
+  for (auto l : lens) total += l;
+  std::vector<uint8_t> copy;
+  if (!blob) {
+    copy.resize(total ? total : 1);
+    lt_ogg_packet_data(ogg, copy.data());
+    blob = copy.data();
+  }
+  for (int64_t i = 0; i < n; ++i) {
+    out.insert(out.end(), {lens[i], serials[i], flags[i], absgp[i], pgran[i]});
+    for (uint64_t j = 0; j < lens[i]; ++j) out.push_back(*blob++);
+  }
+}
+
+// lt_ogg_new_into and a fed stream against lt_ogg_new on one input.
+static void check_demux_routes(const std::vector<uint8_t>& data) {
+  std::vector<uint64_t> want, into, fed;
+  OggReaderOpaque* ogg = lt_ogg_new(data.data(), data.size());
+  append_packets(ogg, want);
+  lt_ogg_free(ogg);
+  std::vector<uint8_t> out(data.size() ? data.size() : 1);
+  ogg = lt_ogg_new_into(data.data(), data.size(), out.data());
+  if (!ogg) abort();
+  append_packets(ogg, into, out.data());
+  lt_ogg_free(ogg);
+  // piece sizes from an LCG of their own: the mutations stay those of the
+  // seed
+  uint32_t piece = (uint32_t)data.size() | 1u;
+  OggReaderOpaque* st = lt_ogg_stream_new();
+  for (size_t off = 0; off < data.size();) {
+    piece = piece * 1664525u + 1013904223u;
+    size_t step = 1 + (piece >> 8) % 4096;
+    if (step > data.size() - off) step = data.size() - off;
+    if (lt_ogg_stream_feed(st, data.data() + off, step) < 0) abort();
+    append_packets(st, fed);
+    off += step;
+  }
+  lt_ogg_free(st);
+  if (into != want || fed != want) {
+    fprintf(stderr, "lt_fuzz: demux routes differ on a %zu-byte input\n",
+            data.size());
+    abort();
+  }
+}
+
 static int decode_all(const std::vector<uint8_t>& data) {
+  check_demux_routes(data);
   OggReaderOpaque* ogg = lt_ogg_new(data.data(), data.size());
   int64_t n = lt_ogg_packet_count(ogg);
   if (n < 3) {

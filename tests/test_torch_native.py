@@ -27,7 +27,11 @@ The comparisons:
 - the native demux (``demux``, ``demux_spans``, ``NativePacketReader`` with
   ``seek_absgp``) against the port's Python ``PacketReader`` on the 38
   committed gate streams and the corpus file they leave out (chained and
-  multi-page streams among them);
+  multi-page streams among them), on the damaged streams below, on crafted
+  pages of every checksummed length mod 16 and of 255 segments, with a
+  one-bit flip at every offset mod 16 of a page's header, lacing and body,
+  and on pages that carry state (multiplexed serials, a packet over three
+  pages, zero-length packets, held heads across holes);
 - ``NativeIncrementalReader`` (the scheduler's reader) against the port's
   Python ``IncrementalPacketReader``, both fed whole and in steps of 1,
   17, 555 and 777 bytes, on those streams and on damaged ones (a broken
@@ -278,6 +282,174 @@ def test_incremental_reader_holds_under_a_page(corpus_dir):
         rdr.feed(data[i:i + 4096])
         assert rdr.held_bytes < largest
     assert rdr.held_bytes == 0
+
+
+def _same_demux(data: bytes) -> list:
+    """The whole-buffer demux (``demux``, ``NativePacketReader`` and
+    ``demux_spans``, each flag bit) against the Python reader; returns the
+    Python reader's packets."""
+    want = _packets(PacketReader(data))
+    _same_packets(native.demux(data), want)
+    _same_packets(_packets(native.NativePacketReader(data)), want)
+    spans, serials, flags, absgp, pgran = native.demux_spans(data)
+    assert len(spans) == len(want)
+    assert int(spans.lens.sum()) <= len(data)
+    for i, p in enumerate(want):
+        assert spans[i] == p.data and serials[i] == p.stream_serial
+        assert [bool(flags[i] >> b & 1) for b in range(4)] == [
+            p.first_in_stream, p.last_in_stream, p.first_in_page,
+            p.last_in_page]
+        assert (int(absgp[i]) if flags[i] & 16 else None) == p.absgp_page
+        assert (int(pgran[i]) if flags[i] & 32 else None) == p.page_granule
+    return want
+
+
+@pytest.mark.parametrize("kind", ["crc", "junk", "truncate", "hole",
+                                  "hole_dropped", "garbage", "empty"])
+def test_demux_matches_python_on_damage(kind):
+    """The whole-buffer demux on broken CRCs, junk between pages, a
+    truncated tail, sequence holes, garbage and nothing: the Python
+    reader's packets."""
+    _same_demux(_damaged(kind))
+
+
+def _page(serial: int, seq: int, flags: int, granule: int,
+          segs: list) -> bytes:
+    """One Ogg page of the lacing segments ``segs`` (each at most 255
+    bytes; a 255-byte segment continues its packet), signed with
+    ``crc32_ogg``; granule -1 for none."""
+    head = struct.pack("<4sBBQIII", b"OggS", 0, flags, granule % (1 << 64),
+                       serial, seq, 0)
+    head += bytes([len(segs), *map(len, segs)])
+    body = b"".join(segs)
+    crc = struct.pack("<I", crc32_ogg(head + body))
+    return head[:22] + crc + head[26:] + body
+
+
+def _body(n: int, salt: int = 0) -> bytes:
+    return bytes((i * 7 + salt) & 0xFF for i in range(n))
+
+
+def _laced(packet: bytes) -> list:
+    """A packet's lacing segments (a 0-byte one ends a multiple of 255)."""
+    return [packet[i:i + 255] for i in range(0, len(packet) // 255 * 255,
+                                             255)] + [packet[len(packet)
+                                                             // 255 * 255:]]
+
+
+#: single-page streams: one packet whose page is 28 + r or 228 + r bytes
+#: (every residue of the checksummed length mod 16, a short run through the
+#: tables alone and a long one folded 16 bytes a step), and the 255-segment
+#: bodies
+CRC_PAGES = {f"len{n}": _page(7, 0, 6, 5, [_body(n)])
+             for r in range(16) for n in (r, 200 + r)}
+CRC_PAGES["segs255_one_packet"] = _page(7, 0, 6, 5,
+                                        _laced(_body(254 * 255 + 17)))
+CRC_PAGES["segs255_packets"] = _page(
+    7, 0, 6, 5, [_body(i % 255, i) for i in range(255)])
+#: three pages; the middle one (255 segments) takes a bit flip (the last
+#: is longer than a flipped lacing value can stretch the middle one)
+_FLIP_PAGES = (_page(9, 0, 2, 0, [_body(40)]),
+               _page(9, 1, 0, 10, [_body(i % 200 + 1, i) for i in range(255)]),
+               _page(9, 2, 4, 20, [_body(250), _body(3)]))
+#: (name, offset in the middle page): every offset mod 16 of its header
+#: (granule, serial, sequence), its lacing and its body
+FLIPS = [(f"{region}{j}", start + j) for region, start in
+         (("header", 6), ("lacing", 27 + 8), ("body", 27 + 255 + 100))
+         for j in range(16)]
+
+
+@pytest.mark.parametrize("name", [*CRC_PAGES, *(n for n, _ in FLIPS)])
+def test_demux_crc_every_tail(name):
+    """The page CRC at every tail length (16 bytes a step by the tables or
+    by the carry-less fold, then the byte tail): signed pages of every
+    checksummed length mod 16, short and long, and of 255 segments give
+    their packets; a one-bit flip at every offset mod 16 of a page's
+    header, lacing or body makes that page, and only it, vanish, as from
+    the Python reader."""
+    if name in CRC_PAGES:
+        want = _same_demux(CRC_PAGES[name])
+        assert len(want) == {"segs255_packets": 255}.get(name, 1)
+        return
+    off = dict(FLIPS)[name]
+    a, b, c = _FLIP_PAGES
+    mid = bytearray(b)
+    mid[off] ^= 1 << (off % 8)
+    want = _same_demux(a + bytes(mid) + c)
+    assert [len(p.data) for p in want] == [40, 250, 3]
+
+
+def _stateful(kind: str) -> bytes:
+    """Pages whose packets carry state from page to page."""
+    big = _body(955, 1)  # three 255-byte segments and a 190-byte one
+    if kind == "multiplexed":
+        # two serials' pages interleaved, each holding a head across the
+        # other's page
+        x = _laced(_body(300, 2))
+        y = _laced(_body(520, 3))
+        return b"".join([
+            _page(1, 0, 2, 0, [_body(30), x[0]]),
+            _page(2, 0, 2, 0, [y[0], y[1]]),
+            _page(1, 1, 1, 100, [x[1], _body(5)]),
+            _page(2, 1, 1, -1, [y[2]]),
+            _page(1, 2, 4, 200, [_body(60)]),
+            _page(2, 2, 4, 300, [_body(8)])])
+    if kind == "three_pages":
+        # a packet begun on the BOS page, through a page of 255s, to a third
+        s = _laced(big)
+        return b"".join([_page(4, 0, 2, -1, [s[0]]),
+                         _page(4, 1, 1, -1, [s[1], s[2]]),
+                         _page(4, 2, 5, 50, [s[3], _body(9)])])
+    if kind == "three_pages_hole":
+        # the middle page lost: the head is dropped, never spliced
+        s = _laced(big)
+        return b"".join([_page(4, 0, 2, -1, [_body(10), s[0]]),
+                         _page(4, 2, 5, 50, [s[3], _body(9)])])
+    if kind == "zero_length":
+        # zero-length packets mid-page and ending a page, and a packet of
+        # exactly 255 bytes (a 255 lacing value, then a 0)
+        return b"".join([
+            _page(5, 0, 2, 0, [_body(4), b"", _body(255), b"", b""]),
+            _page(5, 1, 4, 9, [b"", _body(6)])])
+    if kind == "stale_head":
+        # a held head, then a page of the serial not flagged continued,
+        # then a continued one
+        s = _laced(big)
+        return b"".join([_page(6, 0, 2, 0, [_body(3), s[0]]),
+                         _page(6, 1, 0, 1, [_body(11)]),
+                         _page(6, 2, 1, 2, [s[3], _body(12)])])
+    assert kind == "eos_unterminated"
+    # an EOS page ending in a held head, and a continued page with no head
+    s = _laced(big)
+    return b"".join([_page(8, 0, 2, 0, [_body(3)]),
+                     _page(8, 1, 4, 5, [_body(7), s[0]]),
+                     _page(8, 3, 1, 6, [s[3], _body(2)])])
+
+
+@pytest.mark.parametrize("kind", ["multiplexed", "three_pages",
+                                  "three_pages_hole", "zero_length",
+                                  "stale_head", "eos_unterminated"])
+def test_demux_page_state(kind):
+    """Multiplexed serials, a packet over three pages (whole and with its
+    middle page lost), zero-length packets, a held head under a page not
+    flagged continued, an EOS page ending in a held head: the Python
+    reader's packets and flags from the whole-buffer demux and from the
+    fed reader (whole and a byte a feed); ``spans_pages`` on exactly the
+    packets that began on an earlier page."""
+    data = _stateful(kind)
+    want = _same_demux(data)
+    _same_fed(data, None)
+    _same_fed(data, 1)
+    spans, _, flags, _, _ = native.demux_spans(data)
+    began_earlier = {"multiplexed": {1, 3}, "three_pages": {0},
+                     "three_pages_hole": set(), "zero_length": set(),
+                     "stale_head": {2}, "eos_unterminated": set()}[kind]
+    assert {i for i in range(len(spans)) if flags[i] & 64} == began_earlier
+    if kind == "three_pages":
+        assert [len(p.data) for p in want] == [955, 9]
+        assert want[0].first_in_stream and not want[1].first_in_stream
+    if kind == "zero_length":
+        assert [len(p.data) for p in want] == [4, 0, 255, 0, 0, 6]
 
 
 def _first_link(data: bytes):
