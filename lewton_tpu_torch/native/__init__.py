@@ -42,12 +42,17 @@ _i64p = C.POINTER(C.c_int64)
 #: outputs (mode, prev, next, status, the residue's emit code and buffer,
 #: f_used, f1_ys, f1_flags, f0_cosc, f0_amp, row width); worker threads,
 #: then the workers' busy ns (one slot a worker), the call's wall ns x
-#: workers and the workers' type-2 deinterleave ns (one slot a worker), or
-#: nulls
+#: workers and the workers' stage slots ([workers, len(_STAGE_COUNTERS)]
+#: ns: a row a worker, a column a stage), or nulls
 _CHUNK_ARGS = [C.c_void_p, C.POINTER(C.c_void_p), _u64p, _u64p, _i32p,
                C.c_int, C.c_int, _i32p, _u8p, _u8p, _u8p, C.c_int,
                C.c_void_p, _u8p, _i32p, _u8p, _f32p, _f32p, C.c_int,
                C.c_int, _u64p, _u64p, _u64p]
+#: the counter of each column of the entry's stage slots, in the order of
+#: lt_decode.h's LT_NS_* constants: clearing and deinterleaving the type-2
+#: residue scratch of submaps off the stereo direct write; the per-channel
+#: residue (formats 0 and 1)
+_STAGE_COUNTERS = ("frontend.deinterleave_ns", "frontend.residue01_ns")
 #: residue dtype -> the entry's emit code (LT_EMIT_* of lt_decode.h)
 _EMIT = {np.dtype(np.float32): 0, np.dtype(np.int16): 1,
          np.dtype(np.uint32): 2}
@@ -334,14 +339,14 @@ def span_tables(streams: list, T: int) -> tuple:
 
 
 def _run_batch(fn, args: tuple, threads: int) -> None:
-    """Call the chunk entry ``fn(*args, threads, busy, wall, deinterleave)``
-    in a ``frontend.entropy`` span. While the tracer records, the workers'
-    busy ns, the call's wall ns x workers and the workers' ns spent
-    clearing and deinterleaving the type-2 residue scratch (submaps that do
-    not take the stereo direct write) go to the counters
-    ``frontend.busy_ns``, ``frontend.wall_ns`` and
-    ``frontend.deinterleave_ns``; else the entry gets nulls and times
-    nothing."""
+    """Call the chunk entry ``fn(*args, threads, busy, wall, stages)`` in a
+    ``frontend.entropy`` span. While the tracer records, the workers' busy
+    ns, the call's wall ns x workers and each column of the workers' stage
+    slots (a row a worker: ns clearing and deinterleaving the type-2
+    residue scratch of submaps off the stereo direct write, ns in the
+    per-channel residue) go to the counters ``frontend.busy_ns``,
+    ``frontend.wall_ns`` and :data:`_STAGE_COUNTERS`; else the entry gets
+    nulls and times nothing."""
     sp = profiling.begin("frontend.entropy")
     if sp is None:
         fn(*args, int(threads), None, None, None)
@@ -349,12 +354,13 @@ def _run_batch(fn, args: tuple, threads: int) -> None:
     try:
         busy = np.zeros(max(1, int(threads)), np.uint64)
         wall = np.zeros(1, np.uint64)
-        deint = np.zeros_like(busy)
+        stages = np.zeros((len(busy), len(_STAGE_COUNTERS)), np.uint64)
         fn(*args, int(threads), _ptr(busy, C.c_uint64),
-           _ptr(wall, C.c_uint64), _ptr(deint, C.c_uint64))
+           _ptr(wall, C.c_uint64), _ptr(stages, C.c_uint64))
         profiling.count("frontend.busy_ns", int(busy.sum()))
         profiling.count("frontend.wall_ns", int(wall[0]))
-        profiling.count("frontend.deinterleave_ns", int(deint.sum()))
+        for name, ns in zip(_STAGE_COUNTERS, stages.sum(0)):
+            profiling.count(name, int(ns))
     finally:
         profiling.end(sp)
 

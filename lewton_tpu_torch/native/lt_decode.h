@@ -44,6 +44,13 @@ enum { LT_OK = 0, LT_IS_HEADER = 1, LT_BAD = 2 };
 // lt_decode_chunk's residue emit: f32 rows, i16 rows or 12-bit planes
 enum { LT_EMIT_F32 = 0, LT_EMIT_I16 = 1, LT_EMIT_P12 = 2 };
 
+// lt_decode_chunk's stage slots: each worker's row of the optional
+// [n_threads][LT_NS_SLOTS] block of nanoseconds spent in a stage of
+// decode_packet_residues: clearing and deinterleaving the type-2 scratch of
+// submaps off the stereo direct write; the per-channel residue (formats 0
+// and 1)
+enum { LT_NS_DEINTERLEAVE = 0, LT_NS_RESIDUE01 = 1, LT_NS_SLOTS = 2 };
+
 // Reusable per-call scratch: decode_packet is called ~1M times/s per core,
 // so its working vectors live across packets (assign() on a warm vector is
 // a memset, not an allocation). One scratch per thread; Stream stays

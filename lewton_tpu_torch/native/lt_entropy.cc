@@ -617,16 +617,31 @@ static int decode_packet_head(Stream* st, const uint8_t* pck, size_t len,
   return LT_OK;
 }
 
-// The calling worker's slot of frontend.deinterleave_ns: split_streams
-// points it at the caller's per-worker counter for the worker's block when
-// one is given, else it stays null and no clock is read.
-thread_local uint64_t* tl_deinterleave_ns = nullptr;
+// The calling worker's row of stage slots (LT_NS_*): split_streams points
+// it at the worker's row of the caller's block when one is given, else it
+// stays null and no clock is read.
+thread_local uint64_t* tl_stage_ns = nullptr;
+
+// The calling worker's slot of stage k, or null.
+static inline uint64_t* stage_slot(int k) {
+  return tl_stage_ns ? tl_stage_ns + k : nullptr;
+}
 
 static inline uint64_t steady_ns() {
   return (uint64_t)std::chrono::duration_cast<std::chrono::nanoseconds>(
              std::chrono::steady_clock::now().time_since_epoch())
       .count();
 }
+
+// Adds the nanoseconds of its scope to *slot; a null slot reads no clock.
+struct StageClock {
+  uint64_t* const slot;
+  const uint64_t a;
+  explicit StageClock(uint64_t* s) : slot(s), a(s ? steady_ns() : 0) {}
+  ~StageClock() {
+    if (slot) *slot += steady_ns() - a;
+  }
+};
 
 // Residue section: decodes into the (already zeroed) residue rows.
 // sc.no_residue must hold the head's propagated flags.
@@ -668,11 +683,11 @@ static int decode_packet_residues(Stream* st, BitCursor& cur,
       float* __restrict dr1 =
           residue + (size_t)chans[ch_cnt > 1 ? 1 : 0] * rw;
       // time clearing and deinterleaving `inter` (frontend.deinterleave_ns)
-      uint64_t* const deint_ns = direct2 ? nullptr : tl_deinterleave_ns;
+      uint64_t* const deint_ns =
+          direct2 ? nullptr : stage_slot(LT_NS_DEINTERLEAVE);
       if (!direct2) {
-        const uint64_t a = deint_ns ? steady_ns() : 0;
+        const StageClock clock(deint_ns);
         inter.assign(actual, 0.0f);
-        if (deint_ns) *deint_ns += steady_ns() - a;
       }
       const Codebook& classbook = st->setup.codebooks[r.classbook];
       uint32_t cpc = classbook.dimensions;
@@ -802,17 +817,17 @@ static int decode_packet_residues(Stream* st, BitCursor& cur,
         cur.sync_in(rg.acc, rg.nbits, rg.pos);
       }
       if (!direct2) {
-        const uint64_t a = deint_ns ? steady_ns() : 0;
+        const StageClock clock(deint_ns);
         // deinterleave: channel j takes every ch-th value starting at j
         for (uint32_t k = 0; k < ch_cnt; ++k) {
           float* dst = residue + (size_t)chans[k] * rw;
           for (uint32_t i = k, o = 0; i < actual && o < rw; i += ch_cnt, ++o)
             dst[o] = inter[i];
         }
-        if (deint_ns) *deint_ns += steady_ns() - a;
       }
     } else {
-      // types 0/1: per-channel
+      // types 0/1: per-channel (frontend.residue01_ns)
+      const StageClock clock(stage_slot(LT_NS_RESIDUE01));
       uint32_t actual_size = n / 2;
       uint32_t begin = r.begin < actual_size ? r.begin : actual_size;
       uint32_t end = r.end < actual_size ? r.end : actual_size;
@@ -1156,16 +1171,16 @@ void decode_stream(Stream* st, const uint8_t* buf, const uint64_t* offs,
 // contiguous blocks across std::thread workers (Stream is read-only during
 // decode); one worker runs inline on the calling thread.
 //
-// busy_ns, wall_ns and deint_ns may be null. When given, busy_ns[k]
+// busy_ns, wall_ns and stage_ns may be null. When given, busy_ns[k]
 // receives worker k's time inside its block of streams, one slot per worker
 // (min(n_threads, S) workers, 1 when n_threads <= 1 or S <= 1), and
 // *wall_ns the call's wall time times its worker count, both from
-// steady_clock: their ratio is the workers' fill. deint_ns[k] receives
-// worker k's time spent clearing and deinterleaving the type-2 scratch of
-// submaps that do not take the stereo direct write (decode_packet_residues).
+// steady_clock: their ratio is the workers' fill. stage_ns is a block of
+// [workers][LT_NS_SLOTS]: worker k adds to row k its time in each stage of
+// decode_packet_residues that an LT_NS_* constant names.
 template <typename Run>
 void split_streams(int S, int n_threads, uint64_t* busy_ns,
-                   uint64_t* wall_ns, uint64_t* deint_ns, const Run& run) {
+                   uint64_t* wall_ns, uint64_t* stage_ns, const Run& run) {
   using clk = std::chrono::steady_clock;
   const auto ns = [](clk::duration d) {
     return (uint64_t)std::chrono::duration_cast<std::chrono::nanoseconds>(d)
@@ -1178,9 +1193,10 @@ void split_streams(int S, int n_threads, uint64_t* busy_ns,
     const int s0 = (int)((int64_t)S * k / nt);
     const int s1 = (int)((int64_t)S * (k + 1) / nt);
     const auto a = clk::now();
-    lt::tl_deinterleave_ns = deint_ns ? deint_ns + k : nullptr;
+    lt::tl_stage_ns =
+        stage_ns ? stage_ns + (size_t)k * lt::LT_NS_SLOTS : nullptr;
     for (int s = s0; s < s1; ++s) run(s);
-    lt::tl_deinterleave_ns = nullptr;
+    lt::tl_stage_ns = nullptr;
     if (busy_ns) busy_ns[k] = ns(clk::now() - a);
   };
   if (nt == 1) {
@@ -1216,13 +1232,13 @@ int lt_decode_chunk(Stream* st, const uint8_t* const* bufs,
                     int emit, void* residue, uint8_t* f_kind, int32_t* f1_ys,
                     uint8_t* f1_flags, float* f0_cosc, float* f0_amp, int rw,
                     int n_threads, uint64_t* busy_ns, uint64_t* wall_ns,
-                    uint64_t* deint_ns) {
+                    uint64_t* stage_ns) {
   const size_t C = st->channels, P = st->P, Om = st->Omax;
   const size_t n = C * (size_t)rw;
   if (emit != lt::LT_EMIT_F32 && emit != lt::LT_EMIT_I16 &&
       !(emit == lt::LT_EMIT_P12 && n % 8 == 0))
     return -1;
-  split_streams(S, n_threads, busy_ns, wall_ns, deint_ns, [&](int s) {
+  split_streams(S, n_threads, busy_ns, wall_ns, stage_ns, [&](int s) {
     const size_t b = (size_t)s * T;
     auto run = [&](auto&& rows) {
       decode_stream(st, bufs[s], offs + b, lens + b, counts[s], mode + b,

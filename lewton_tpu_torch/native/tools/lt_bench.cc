@@ -7,7 +7,9 @@
 // can be attributed:
 //   lt_bench file.ogg [repeat]
 // Prints the packet count, packets/s and MB/s of bitstream by the wall
-// clock, and packets/s by the process's CPU time. _build.build_bench()
+// clock, and packets/s by the process's CPU time; on stderr, the share of
+// the wall in each of the entry's timed stages (its stage slots, LT_NS_*
+// of lt_decode.h: one clock pair a packet and submap). _build.build_bench()
 // builds it with the host library's sources and flags (plus -g, a
 // profiler's target); it lies in native/tools/, which the library's own
 // build does not read.
@@ -109,6 +111,7 @@ int main(int argc, char** argv) {
       f0_amp((size_t)T * C);
 
   int bad = 0;
+  uint64_t stages[lt::LT_NS_SLOTS] = {};
   timespec c0, c1;
   clock_gettime(CLOCK_PROCESS_CPUTIME_ID, &c0);
   auto t0 = std::chrono::steady_clock::now();
@@ -120,7 +123,7 @@ int main(int argc, char** argv) {
                     status.data(), lt::LT_EMIT_F32, residue.data(),
                     f_used.data(), f1_ys.data(), f1_flags.data(),
                     f0_cosc.data(), f0_amp.data(), W, 1, nullptr, nullptr,
-                    nullptr);
+                    stages);
     for (int t = 0; t < n; ++t) bad += status[t] != 0;
   }
   auto t1 = std::chrono::steady_clock::now();
@@ -133,6 +136,9 @@ int main(int argc, char** argv) {
   printf("%.0f packets/s, %.1f MB/s bitstream, %.2f ms\n", N / dt,
          abytes / dt / 1e6, dt * 1e3);
   printf("cpu: %.0f packets/s, %.2f ms\n", N / dc, dc * 1e3);
+  fprintf(stderr, "stages: deinterleave %.1f%%, residue01 %.1f%% of the wall\n",
+          stages[lt::LT_NS_DEINTERLEAVE] / dt / 1e7,
+          stages[lt::LT_NS_RESIDUE01] / dt / 1e7);
   lt_stream_free(st);
   return 0;
 }

@@ -217,11 +217,15 @@ static int decode_all(const std::vector<uint8_t>& data) {
         void* residues[3] = {res_f32.data(), res_i16.data(), res_p12.data()};
         for (int emit = lt::LT_EMIT_F32; emit <= lt::LT_EMIT_P12; ++emit) {
           if (emit == lt::LT_EMIT_P12 && (C * (size_t)rw) % 8) continue;
+          // the i16 emit also times its stages into one worker's row
+          uint64_t busy = 0, wall = 0, stages[lt::LT_NS_SLOTS] = {};
+          const bool timed = emit == lt::LT_EMIT_I16;
           lt_decode_chunk(stm, &base, offs.data(), lens.data(), &T, 1, T,
                           mode.data(), prevf.data(), nextf.data(),
                           status.data(), emit, residues[emit], f_kind.data(),
                           f1_ys.data(), f1_flags.data(), f0_cosc.data(),
-                          f0_amp.data(), rw, 1, nullptr, nullptr, nullptr);
+                          f0_amp.data(), rw, 1, timed ? &busy : nullptr,
+                          timed ? &wall : nullptr, timed ? stages : nullptr);
         }
       }
     }

@@ -450,10 +450,10 @@ def test_native_busy_counters_only_when_asked(threads):
     tables = native.span_tables(streams, CHUNK)[:4]
     out = ns.frame_buffers(CHUNK, lead=(S,))
 
-    def call(busy, wall, deint=None):
+    def call(busy, wall, stages=None):
         status = np.zeros((S, CHUNK), np.uint8)
         ns._lib.lt_decode_chunk(*ns.chunk_args(*tables, out, status),
-                                threads, busy, wall, deint)
+                                threads, busy, wall, stages)
         return status
 
     plain = call(None, None)
@@ -466,8 +466,8 @@ def test_native_busy_counters_only_when_asked(threads):
     assert (busy[workers:] == sentinel).all()
     assert (busy[:workers] != sentinel).all() and wall[0] != sentinel
     assert 0 < int(busy[:workers].sum()) <= int(wall[0])
-    # the deinterleave slots: added to, one a worker, only when given
-    deint = np.zeros(threads + 2, np.uint64)
-    deint[workers:] = sentinel
-    assert (call(None, None, native._ptr(deint, C.c_uint64)) == plain).all()
-    assert (deint[workers:] == sentinel).all()
+    # the stage slots: a row a worker, added to, only when given
+    stages = np.zeros((threads + 2, len(native._STAGE_COUNTERS)), np.uint64)
+    stages[workers:] = sentinel
+    assert (call(None, None, native._ptr(stages, C.c_uint64)) == plain).all()
+    assert (stages[workers:] == sentinel).all()
