@@ -78,7 +78,7 @@ __all__ = ["CompiledSetup", "compile_setup", "from_jax_setup",
            "frames_program", "routing_flags",
            "USE_FUSED_SYNTH_KERNEL", "DEFAULT_CHUNK", "pack_frames",
            "compact_invalid_frames", "predict_out_lens", "frames_to_device",
-           "StreamDecoder"]
+           "host_threads", "StreamDecoder"]
 
 DEFAULT_CHUNK = 64
 
@@ -810,6 +810,12 @@ def frames_to_device(fr: dict, device) -> dict:
 # --------------------------------------------------------------------------- #
 
 
+def host_threads() -> int:
+    """The host worker threads of a batch's host stages (the native
+    front-end's, the compaction's): the cores, at most 8."""
+    return min(8, os.cpu_count() or 1)
+
+
 #: the stages of :attr:`StreamDecoder.stage_s`
 STAGES = ("compile_setup", "frontend", "device", "d2h")
 
@@ -989,7 +995,7 @@ class StreamDecoder:
                 fr = out
             return fr, status
         if threads is None:
-            threads = min(8, os.cpu_count() or 1)
+            threads = host_threads()
         fr = out if out is not None else self._native.frame_buffers(
             self.chunk, lead=(len(streams),))
         status = self._native_chunk(streams, fr, threads)

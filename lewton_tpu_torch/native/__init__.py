@@ -28,7 +28,7 @@ from ..errors import AudioBadFormat, AudioIsHeader, BadHeader, OggError
 __all__ = ["available", "NativeStream", "NativeDecoder", "PacketSpans",
            "NativePacket", "NativePacketReader", "NativeIncrementalReader",
            "demux", "demux_spans", "span_tables",
-           "decode_ogg_i16", "pack12"]
+           "decode_ogg_i16", "pack12", "compact_rows"]
 
 _lib = None
 
@@ -98,6 +98,10 @@ def _load():
         fn.argtypes = [C.c_void_p]
     lib.lt_pack12.restype = C.c_int64
     lib.lt_pack12.argtypes = [_i16p, _u32p, C.c_int64, C.c_int64]
+    lib.lt_compact_rows.restype = None
+    lib.lt_compact_rows.argtypes = [_i16p, C.c_int64, C.c_int64,
+                                    C.POINTER(C.c_void_p), _i64p, _i64p,
+                                    C.c_int64, C.c_int64]
     # the CPU synthesis decoder (lt_synth.cc) and the whole-file decode
     lib.lt_decoder_new.restype = C.c_void_p
     lib.lt_decoder_new.argtypes = [_u8p, C.c_size_t, _u8p, C.c_size_t,
@@ -155,6 +159,39 @@ def pack12(arr: np.ndarray) -> np.ndarray:
                      C.c_int64(rows), C.c_int64(n)):
         raise ValueError("pack12: residue value outside [-2048, 2047]")
     return out
+
+
+def compact_rows(src: np.ndarray, totals: np.ndarray, starts: np.ndarray,
+                 dst: np.ndarray, rows: np.ndarray, lo: int, hi: int) -> None:
+    """The C loop of a part of ``BatchDecoder``'s compaction: for each
+    stream s in [lo, hi), ``src[s, :totals[s]]`` (i16 [S, cap, C]) into the
+    output at address ``dst[s]`` (i16 [rows[s], C], C-contiguous) from row
+    ``starts[s]``; the interpreter's lock is released once for the part.
+    Raises, copying nothing, when a row named lies outside ``src`` or its
+    output."""
+    lib = _load()
+    if (src.dtype != np.int16 or not src.flags.c_contiguous
+            or src.ndim != 3 or dst.dtype != np.uintp
+            or not dst.flags.c_contiguous):
+        raise ValueError("compact_rows takes C-contiguous i16 [S, cap, C] "
+                         "and output addresses")
+    totals, starts = (np.ascontiguousarray(v, np.int64)
+                      for v in (totals, starts))
+    S = src.shape[0]
+    if not (len(totals) == len(starts) == len(dst) == len(rows) == S
+            and 0 <= lo <= hi <= S):
+        raise ValueError("compact_rows: a table or the part does not fit "
+                         "the chunk's streams")
+    part = slice(lo, hi)
+    if ((totals[part] < 0).any() or (totals[part] > src.shape[1]).any()
+            or (starts[part] < 0).any()
+            or (starts[part] + totals[part] > rows[part]).any()):
+        raise ValueError("compact_rows: rows outside the chunk or the output")
+    lib.lt_compact_rows(
+        _ptr(src, C.c_int16), C.c_int64(src.shape[1] * src.shape[2]),
+        C.c_int64(src.shape[2]), dst.ctypes.data_as(C.POINTER(C.c_void_p)),
+        _ptr(starts, C.c_int64), _ptr(totals, C.c_int64), C.c_int64(lo),
+        C.c_int64(hi))
 
 
 class NativeStream:

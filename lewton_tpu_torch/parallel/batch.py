@@ -51,17 +51,19 @@ from __future__ import annotations
 import functools
 import os
 import time
+from concurrent import futures
 from types import SimpleNamespace
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from .. import profiling
+from .. import native, profiling
 from ..models.decoder import (CompiledSetup, StreamDecoder,
                               decode_frames_core, finish_stream,
-                              frames_to_device, predict_out_lens,
-                              routing_flags, synthesize_local)
+                              frames_to_device, host_threads,
+                              predict_out_lens, routing_flags,
+                              synthesize_local)
 from ..ops.imdct import imdct_batch
 from ..ops.windowing import init_window_carry
 from . import graphs
@@ -911,6 +913,43 @@ def _bucket(samples: int) -> int:
     return -(-samples // 8192) * 8192
 
 
+#: the bytes of a group's compaction for each part it splits into: a group
+#: below this is copied by the calling thread alone, so small decodes and
+#: serving-sized batches pay no hand-off to the pool
+_COMPACT_PART_BYTES = 8 << 20
+
+
+def _byte_ranges(nbytes: np.ndarray, parts: int) -> list[tuple[int, int]]:
+    """At most ``parts`` non-empty ranges [lo, hi) of the streams, in order
+    and covering each once, cut where the running sum of ``nbytes`` (each
+    stream's bytes) passes each multiple of the total over ``parts``: a
+    range holds that mean within one stream's bytes. Streams differ in
+    length by up to 10x, so equal stream counts would not balance."""
+    cum = np.cumsum(nbytes)
+    cuts = np.searchsorted(cum, cum[-1] * np.arange(1, parts) / parts,
+                           side="right")
+    edges = np.unique(np.concatenate(([0], cuts, [len(nbytes)])))
+    return [(int(lo), int(hi)) for lo, hi in zip(edges[:-1], edges[1:])]
+
+
+def _compact_part(a: np.ndarray, totals: np.ndarray, starts: np.ndarray,
+                  dst: tuple, lo: int, hi: int) -> None:
+    """Streams [lo, hi) of a group's device-compacted chunks ``a`` [N, S,
+    cap, C]: each stream's first ``totals`` [N, S] samples into its output
+    at ``starts`` [N, S], one native call a chunk
+    (``native.compact_rows``: the interpreter's lock is released once a
+    chunk, not once a stream, which a part's threads would otherwise queue
+    for). ``dst``: the outputs' :func:`_addresses`."""
+    for n in range(totals.shape[0]):
+        native.compact_rows(a[n], totals[n], starts[n], *dst, lo, hi)
+
+
+def _addresses(outs: list) -> tuple:
+    """The outputs' addresses and rows, for :func:`_compact_part`."""
+    return (np.fromiter((o.ctypes.data for o in outs), np.uintp, len(outs)),
+            np.fromiter((len(o) for o in outs), np.int64, len(outs)))
+
+
 class BatchDecoder:
     """Decode a batch of independent streams sharing one setup geometry on
     ``device`` (the card unless the caller names another).
@@ -919,7 +958,10 @@ class BatchDecoder:
     Streams are padded to a common packet count; per-packet lengths recover
     the ragged output. The host front-end is :class:`StreamDecoder`'s
     (``raw_headers`` and ``frontend`` as there: the native library unless
-    the caller asks for the Python one).
+    the caller asks for the Python one). Whatever the front-end,
+    ``decode_streams_i16``'s device-compacted PCM is copied into the
+    outputs by the native host library (``native.compact_rows``), which
+    must build.
 
     ``mesh=`` (a :func:`make_mesh` DeviceMesh; every rank of the group
     constructs the decoder and makes the same calls, as under ``torchrun``)
@@ -964,6 +1006,10 @@ class BatchDecoder:
         self.last_stats = {"h2d_bytes": 0, "d2h_bytes": 0}
         #: decode_streams_i16 calls made (the ``batch.decode`` span's rid)
         self._calls = 0
+        #: the threads a group's compaction splits over, and their pool,
+        #: made at first use; it runs while the front-end's workers wait
+        self._compact_threads = host_threads()
+        self._compact_pool = None
 
     def _mine(self, streams: list) -> list:
         """This rank's dp block of ``streams`` (all of them without a
@@ -1043,7 +1089,8 @@ class BatchDecoder:
 
         Pipelined: each group's device work and device-to-host copy run
         while the host entropy-decodes the next group; the previous group's
-        PCM is copied into the outputs once the next group is enqueued. The
+        PCM is copied into the outputs once the next group is enqueued,
+        split over the host threads when it is large. The
         host frame buffers and the pinned buffers of both directions are
         kept per slot of a double buffer and reused across groups and
         calls."""
@@ -1087,6 +1134,7 @@ class BatchDecoder:
         outs = [np.empty((len(p) * (3 * n1 // 4), self.cs.channels),
                          np.int16) for p in streams]
         offs = np.zeros(S, np.int64)
+        dst = _addresses(outs)
         #: the group whose device-to-host copy is in flight: [host pcm,
         #: copy event, totals [N, S], lens [N, S, T] | None]
         pending = None
@@ -1110,20 +1158,27 @@ class BatchDecoder:
             # finish the previous group: its copy had this group's
             # front-end time to drain
             if pending is not None:
-                self._finish(pending, outs, offs, st)
+                self._finish(pending, outs, offs, st, dst)
             pending = [host, copied, lens_all.sum(axis=-1),
                        lens_all if compact == "host" else None]
             st.lap("d2h", device_work=True)
         if pending is not None:
-            self._finish(pending, outs, offs, st)
+            self._finish(pending, outs, offs, st, dst)
         self.last_stats["stages"] = st.result()
         return self._gathered([o[: int(offs[s])]
                                for s, o in enumerate(outs)])
 
     def _finish(self, entry: list, outs: list, offs: np.ndarray,
-                st: _Stages) -> None:
+                st: _Stages, dst: tuple) -> None:
         """Wait for a group's device-to-host copy, then copy its samples
-        into the outputs at ``offs`` (advanced here)."""
+        into the outputs at ``offs`` (advanced here). A device-compacted
+        group is copied in one part for each ``_COMPACT_PART_BYTES`` begun
+        (at least one, at most the compaction's threads): contiguous stream
+        ranges of about equal bytes (:func:`_byte_ranges`), each a
+        :func:`_compact_part`, over the pool when there are two or more and
+        on the calling thread otherwise. A padded group is copied on the
+        calling thread: NumPy's per-stream copies on pool threads lose to
+        one thread. ``dst``: the outputs' :func:`_addresses`."""
         host, copied, totals, lens = entry
         if copied is not None:
             with profiling.span("wait"):
@@ -1131,25 +1186,40 @@ class BatchDecoder:
         a = host.numpy() if isinstance(host, torch.Tensor) else host
         st.lap("d2h")
         compact = profiling.begin("batch.compact")
-        S, C = len(outs), self.cs.channels
         if a.ndim == len(totals.shape) + 1:  # single chunk: add N=1
             a = a[None]
-        for n in range(totals.shape[0]):
-            an = a[n]
-            if lens is None:  # device-compacted [S, cap, C]
-                for s in range(S):
-                    m = int(totals[n, s])
-                    outs[s][int(offs[s]): int(offs[s]) + m] = an[s, :m]
-            else:  # padded flat [S, T, C*outw]: slice + interleave
-                T = an.shape[1]
-                an = an.reshape(S, T, C, -1)
+        S, C = len(outs), self.cs.channels
+        nbytes = totals.sum(axis=0) * (C * 2)  # i16 samples
+        starts = offs + np.cumsum(totals, axis=0) - totals
+        ranges = [(0, S)]
+        if lens is not None:  # padded flat [S, T, C*outw]: slice + interleave
+            for n in range(totals.shape[0]):
+                an = a[n].reshape(S, a.shape[2], C, -1)
                 keep = (np.arange(an.shape[3])[None, :]
                         < lens[n][:, :, None])  # [S, T, w]
                 for s in range(S):
-                    m = int(totals[n, s])
-                    outs[s][int(offs[s]): int(offs[s]) + m] = \
-                        an[s].transpose(0, 2, 1)[keep[s]]
-            offs += totals[n]
+                    m, o = int(totals[n, s]), int(starts[n, s])
+                    outs[s][o: o + m] = an[s].transpose(0, 2, 1)[keep[s]]
+        else:
+            ranges = _byte_ranges(nbytes, max(1, min(
+                self._compact_threads,
+                -(-int(nbytes.sum()) // _COMPACT_PART_BYTES))))
+            if len(ranges) == 1:
+                _compact_part(a, totals, starts, dst, *ranges[0])
+            else:
+                if self._compact_pool is None:
+                    self._compact_pool = futures.ThreadPoolExecutor(
+                        self._compact_threads,
+                        thread_name_prefix="lt-compact")
+                done = [self._compact_pool.submit(_compact_part, a, totals,
+                                                  starts, dst, lo, hi)
+                        for lo, hi in ranges]
+                futures.wait(done)  # every part ends before an error raises
+                for f in done:
+                    f.result()
+        offs += totals.sum(axis=0)
+        if compact is not None:
+            profiling.count("batch.compact_bytes", nbytes.sum())
+            profiling.count("batch.compact_parts", len(ranges))
         profiling.end(compact)
         st.lap("compact")
-

@@ -10,7 +10,8 @@
   it; ``transfer.packets`` / ``transfer.slots`` is the padded fill of a
   ragged batch, and the native route sends every byte from the slots'
   blocks (``transfer.direct_bytes``), none staged; graph replays and first uses are one span each; waits on
-  CUDA events are ``wait`` spans.
+  CUDA events are ``wait`` spans; ``batch.compact_bytes`` is the outputs'
+  bytes and ``batch.compact_parts`` the parts the groups' copies ran in.
 - The ring keeps its bound; ``idle_by_span`` splits a synthetic profile's
   idle time by innermost span; ``trace`` writes the ranges and counters.
 - The native batch entries fill the workers' busy time and the call's wall
@@ -33,7 +34,7 @@ from lewton_tpu_torch import native, profiling
 from lewton_tpu_torch.header import read_header_ident, read_header_setup
 from lewton_tpu_torch.ogg import PacketReader
 from lewton_tpu_torch.ogg.demux import IncrementalPacketReader
-from lewton_tpu_torch.parallel import graphs
+from lewton_tpu_torch.parallel import batch, graphs
 from lewton_tpu_torch.parallel.batch import BatchDecoder, TransferSlots
 from lewton_tpu_torch.profiling import Count, Span
 from lewton_tpu_torch.serve import StreamingScheduler
@@ -253,6 +254,25 @@ def test_batch_spans_nest_and_count_the_padded_slots():
     assert "stages" in dec.last_stats  # the stage timer is left as it was
 
 
+@pytest.mark.parametrize("split", [False, True])
+def test_compaction_counts_its_bytes_and_parts(monkeypatch, split):
+    """The same ragged batch with its groups copied on the calling thread
+    (one part a group) and split over 4 pool threads (more parts than
+    groups); ``batch.compact`` still nests under ``batch.decode``."""
+    monkeypatch.setattr(batch, "host_threads", lambda: 4)
+    monkeypatch.setattr(batch, "_COMPACT_PART_BYTES", 1 if split else 1 << 40)
+    data = _bytes()
+    dec = _decoder(data)
+    with _cpu_profile():
+        outs = dec.decode_streams_i16(_ragged(data, [52, 17, 5]))
+    groups = -(-52 // CHUNK)
+    c = _counts()
+    assert c["batch.compact_bytes"] == sum(o.nbytes for o in outs) > 0
+    assert (c["batch.compact_parts"] > groups if split
+            else c["batch.compact_parts"] == groups)
+    assert {(s.name, s.parent) for s in _spans()} == BATCH_PARENTS
+
+
 def _lt_events(prof):
     """(name, nearest lt. ancestor's name) of each lt. range."""
     out = []
@@ -355,7 +375,8 @@ def test_waits_on_events_are_wait_spans():
         slots.wait_put(1)  # no copies through slot 1 yet: no wait
         with profiling.span("batch.decode", 1):
             dec._finish([np.ones((1, 4, 1), np.int16), ev,
-                         np.array([[3]]), None], outs, offs, st)
+                         np.array([[3]]), None], outs, offs, st,
+                        batch._addresses(outs))
     assert ev.waited == 2
     assert [(s.name, s.parent) for s in _spans()] == [
         ("wait", None), ("wait", "batch.decode"),
