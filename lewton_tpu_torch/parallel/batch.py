@@ -27,6 +27,10 @@ copies and a side stream for the device-to-host copies
 (:class:`TransferSlots`, which ``serve.StreamingScheduler``'s groups use
 too). Each group of chunks goes through a program of the transfer slots:
 the host-to-device copies land in its static inputs, and its graph replays.
+:class:`MixedBatchDecoder` takes a batch whose streams have different
+setups: a ``BatchDecoder`` per setup, kept across calls, all driven by the
+one group loop (:func:`_decode_groups`), so the pipeline runs on across a
+switch of setup as between two groups of one setup.
 
 Sharding follows the reference's (dp, tp) mesh in PyTorch's idiom: one
 process per rank under ``torch.distributed`` and a ``DeviceMesh`` with dims
@@ -59,6 +63,8 @@ import torch
 import torch.distributed as dist
 
 from .. import native, profiling
+from ..errors import BadHeader, VorbisError
+from ..header import read_header_ident, read_header_setup
 from ..models.decoder import (CompiledSetup, StreamDecoder,
                               decode_frames_core, finish_stream,
                               frames_to_device, host_threads,
@@ -74,7 +80,7 @@ __all__ = ["make_mesh", "mesh_device", "decode_chunk_batch",
            "pack_frame_buffers", "unpack_frame_buffers", "packed_program",
            "decode_chunk_batch_packed", "decode_chunk_batch_packed_i16",
            "decode_chunks_scan_packed", "decode_chunks_scan_packed_i16",
-           "TransferSlots", "BatchDecoder"]
+           "TransferSlots", "BatchDecoder", "MixedBatchDecoder"]
 
 
 def _chunk(frs: dict, i: int) -> dict:
@@ -950,6 +956,28 @@ def _addresses(outs: list) -> tuple:
             np.fromiter((len(o) for o in outs), np.int64, len(outs)))
 
 
+class _CompactPool:
+    """The threads a group's compaction splits over (``host_threads()``)
+    and their pool, made at first use; it runs while the front-end's
+    workers wait. The decoders of a :class:`MixedBatchDecoder` share
+    one."""
+
+    def __init__(self):
+        self.threads = host_threads()
+        self.pool = None
+
+    def run(self, fn, ranges: list, *args) -> None:
+        """``fn(*args, lo, hi)`` for each range [lo, hi) on the pool;
+        returns once every range has ended, then raises the first error."""
+        if self.pool is None:
+            self.pool = futures.ThreadPoolExecutor(
+                self.threads, thread_name_prefix="lt-compact")
+        done = [self.pool.submit(fn, *args, lo, hi) for lo, hi in ranges]
+        futures.wait(done)  # every part ends before an error raises
+        for f in done:
+            f.result()
+
+
 class BatchDecoder:
     """Decode a batch of independent streams sharing one setup geometry on
     ``device`` (the card unless the caller names another).
@@ -1006,10 +1034,9 @@ class BatchDecoder:
         self.last_stats = {"h2d_bytes": 0, "d2h_bytes": 0}
         #: decode_streams_i16 calls made (the ``batch.decode`` span's rid)
         self._calls = 0
-        #: the threads a group's compaction splits over, and their pool,
-        #: made at first use; it runs while the front-end's workers wait
-        self._compact_threads = host_threads()
-        self._compact_pool = None
+        #: the compaction's threads (a MixedBatchDecoder's decoders share
+        #: its one)
+        self._compact = _CompactPool()
 
     def _mine(self, streams: list) -> list:
         """This rank's dp block of ``streams`` (all of them without a
@@ -1096,77 +1123,11 @@ class BatchDecoder:
         calls."""
         self._calls += 1
         with profiling.span("batch.decode", self._calls):
-            return self._decode_streams_i16(streams, compact, scan,
-                                            transport)
-
-    def _decode_streams_i16(self, streams: list, compact: str, scan,
-                            transport: str) -> list[np.ndarray]:
-        max_t = max(len(p) for p in streams)
-        streams = self._mine(streams)
-        S = len(streams)
-        n1 = self.cs.n1
-        st = _Stages(self.device, self.stage_sync)
-        scan = max(1, int(self.scan if scan is None else scan))
-        if self.mesh is not None:
-            scan, transport, compact = 1, "i16", "device"
-        if transport == "auto":
-            transport = "p12" if p12_auto(self.cs, self.device) else "i16"
-        use_p12 = transport == "p12" and pack12_supported(self.cs)
-        self._sd.set_residue_transport("p12" if use_p12 else "default")
-        self.last_stats = {"h2d_bytes": 0, "d2h_bytes": 0,
-                           "transport": "p12" if use_p12 else "i16"}
-        carry = _stream_carry(self.cs, S)
-        bf_host = SimpleNamespace(mode_blockflag=self._bf_host,
-                                  n0=self.cs.n0, n1=n1)
-        started = np.zeros(S, bool)
-        n_chunks = -(-max_t // self.chunk)
-        groups: list[list[int]] = []
-        ci = 0
-        while ci < n_chunks:
-            n = 1 << (scan.bit_length() - 1)  # largest pow2 <= scan
-            while n > 1 and ci + n > n_chunks:
-                n //= 2
-            groups.append(list(range(ci, ci + n)))
-            ci += n
-        # outputs sized by each stream's most samples (3 n1/4 a packet) and
-        # cut to the decoded length at the end: np.empty leaves the pages
-        # past the audio untouched
-        outs = [np.empty((len(p) * (3 * n1 // 4), self.cs.channels),
-                         np.int16) for p in streams]
-        offs = np.zeros(S, np.int64)
-        dst = _addresses(outs)
-        #: the group whose device-to-host copy is in flight: [host pcm,
-        #: copy event, totals [N, S], lens [N, S, T] | None]
-        pending = None
-        st.lap("frontend")
-        for gi, group in enumerate(groups):
-            N, slot = len(group), gi % 2
-            buf = self._slots.frame_slot(slot, N, S)
-            lens_all = np.zeros((N, S, self.chunk), np.int64)
-            for n, ci in enumerate(group):
-                t0 = ci * self.chunk
-                view = {k: v[n] for k, v in buf.items()}
-                self._sd.entropy_chunk_batch(
-                    [pks[t0: t0 + self.chunk] for pks in streams], out=view)
-                lens_all[n], started = predict_out_lens(bf_host, view,
-                                                        started)
-            host, copied, carry, h2d, d2h = self._slots.dispatch(
-                slot, buf, lens_all, carry, use_p12, compact, st.lap,
-                self._imdct)
-            self.last_stats["h2d_bytes"] += h2d
-            self.last_stats["d2h_bytes"] += d2h
-            # finish the previous group: its copy had this group's
-            # front-end time to drain
-            if pending is not None:
-                self._finish(pending, outs, offs, st, dst)
-            pending = [host, copied, lens_all.sum(axis=-1),
-                       lens_all if compact == "host" else None]
-            st.lap("d2h", device_work=True)
-        if pending is not None:
-            self._finish(pending, outs, offs, st, dst)
-        self.last_stats["stages"] = st.result()
-        return self._gathered([o[: int(offs[s])]
-                               for s, o in enumerate(outs)])
+            st = _Stages(self.device, self.stage_sync)
+            (part,) = _decode_groups([(self, streams)], compact, scan,
+                                     transport, st)
+            self.last_stats = part.stats() | {"stages": st.result()}
+            return self._gathered(part.pcm())
 
     def _finish(self, entry: list, outs: list, offs: np.ndarray,
                 st: _Stages, dst: tuple) -> None:
@@ -1202,24 +1163,225 @@ class BatchDecoder:
                     outs[s][o: o + m] = an[s].transpose(0, 2, 1)[keep[s]]
         else:
             ranges = _byte_ranges(nbytes, max(1, min(
-                self._compact_threads,
+                self._compact.threads,
                 -(-int(nbytes.sum()) // _COMPACT_PART_BYTES))))
             if len(ranges) == 1:
                 _compact_part(a, totals, starts, dst, *ranges[0])
             else:
-                if self._compact_pool is None:
-                    self._compact_pool = futures.ThreadPoolExecutor(
-                        self._compact_threads,
-                        thread_name_prefix="lt-compact")
-                done = [self._compact_pool.submit(_compact_part, a, totals,
-                                                  starts, dst, lo, hi)
-                        for lo, hi in ranges]
-                futures.wait(done)  # every part ends before an error raises
-                for f in done:
-                    f.result()
+                self._compact.run(_compact_part, ranges, a, totals, starts,
+                                  dst)
         offs += totals.sum(axis=0)
         if compact is not None:
             profiling.count("batch.compact_bytes", nbytes.sum())
             profiling.count("batch.compact_parts", len(ranges))
         profiling.end(compact)
         st.lap("compact")
+
+
+class _Part:
+    """One decoder's streams in a ``decode_streams_i16`` call, and what the
+    group loop keeps for them: this rank's block of the streams, their
+    groups of chunks, the residue transport, the window carry, the outputs
+    with the samples written so far (``offs``) and the bytes each way.
+
+    A group is N chunks, N the largest power of two at most ``scan``, a
+    short tail taking smaller powers of two rather than padding. The
+    outputs are sized by each stream's most samples (3 n1/4 a packet) and
+    cut to the decoded length at the end: ``np.empty`` leaves the pages
+    past the audio untouched."""
+
+    def __init__(self, dec: BatchDecoder, streams: list, compact: str, scan,
+                 transport: str):
+        self.dec = dec
+        cs = dec.cs
+        max_t = max(len(p) for p in streams)
+        self.streams = dec._mine(streams)
+        S = self.S = len(self.streams)
+        scan = max(1, int(dec.scan if scan is None else scan))
+        if dec.mesh is not None:
+            scan, transport, compact = 1, "i16", "device"
+        if transport == "auto":
+            transport = "p12" if p12_auto(cs, dec.device) else "i16"
+        self.use_p12 = transport == "p12" and pack12_supported(cs)
+        dec._sd.set_residue_transport("p12" if self.use_p12 else "default")
+        self.compact = compact
+        self.carry = _stream_carry(cs, S)
+        self.bf_host = SimpleNamespace(mode_blockflag=dec._bf_host,
+                                       n0=cs.n0, n1=cs.n1)
+        self.started = np.zeros(S, bool)
+        n_chunks = -(-max_t // dec.chunk)
+        self.groups: list[list[int]] = []
+        ci = 0
+        while ci < n_chunks:
+            n = 1 << (scan.bit_length() - 1)  # largest pow2 <= scan
+            while n > 1 and ci + n > n_chunks:
+                n //= 2
+            self.groups.append(list(range(ci, ci + n)))
+            ci += n
+        self.outs = [np.empty((len(p) * (3 * cs.n1 // 4), cs.channels),
+                              np.int16) for p in self.streams]
+        self.offs = np.zeros(S, np.int64)
+        self.dst = _addresses(self.outs)
+        self.h2d = self.d2h = 0
+
+    def finish(self, entry: list, st: _Stages) -> None:
+        self.dec._finish(entry, self.outs, self.offs, st, self.dst)
+
+    def stats(self) -> dict:
+        return {"h2d_bytes": self.h2d, "d2h_bytes": self.d2h,
+                "transport": "p12" if self.use_p12 else "i16"}
+
+    def pcm(self) -> list:
+        return [o[: int(self.offs[s])] for s, o in enumerate(self.outs)]
+
+
+def _decode_groups(jobs: list, compact: str, scan, transport: str,
+                   st: _Stages) -> list[_Part]:
+    """The group loop of ``decode_streams_i16``: ``jobs``, (BatchDecoder,
+    streams) pairs, each made a :class:`_Part` and decoded in turn, its
+    groups through its decoder's transfer slots, all in one pipeline. Each
+    group's device work and device-to-host copy run while the host
+    entropy-decodes the next group, whichever part that is of; the group
+    is finished (copied into its part's outputs) once the next is
+    enqueued. So a switch of part does not drain the pipeline. A part
+    after the first is entered in a ``batch.setup_switch`` span (rid: its
+    index), from the last dispatch before it to its first front-end
+    call."""
+    parts = []
+    #: the group whose device-to-host copy is in flight: its part and
+    #: [host pcm, copy event, totals [N, S], lens [N, S, T] | None]
+    pending = None
+    for j, (dec, streams) in enumerate(jobs):
+        switch = profiling.begin("batch.setup_switch", j) if j else None
+        part = _Part(dec, streams, compact, scan, transport)
+        parts.append(part)
+        st.lap("frontend")
+        for gi, group in enumerate(part.groups):
+            N, slot = len(group), gi % 2
+            buf = dec._slots.frame_slot(slot, N, part.S)
+            profiling.end(switch)
+            switch = None
+            lens_all = np.zeros((N, part.S, dec.chunk), np.int64)
+            for n, ci in enumerate(group):
+                t0 = ci * dec.chunk
+                view = {k: v[n] for k, v in buf.items()}
+                dec._sd.entropy_chunk_batch(
+                    [pks[t0: t0 + dec.chunk] for pks in part.streams],
+                    out=view)
+                lens_all[n], part.started = predict_out_lens(
+                    part.bf_host, view, part.started)
+            host, copied, part.carry, h2d, d2h = dec._slots.dispatch(
+                slot, buf, lens_all, part.carry, part.use_p12, part.compact,
+                st.lap, dec._imdct)
+            part.h2d += h2d
+            part.d2h += d2h
+            # finish the previous group: its copy had this group's
+            # front-end time to drain
+            if pending is not None:
+                pending[0].finish(pending[1], st)
+            pending = (part, [host, copied, lens_all.sum(axis=-1),
+                              lens_all if part.compact == "host" else None])
+            st.lap("d2h", device_work=True)
+        profiling.end(switch)
+    if pending is not None:
+        pending[0].finish(pending[1], st)
+    return parts
+
+
+class MixedBatchDecoder:
+    """Decode a batch of independent streams of any setups on ``device``
+    (the card unless the caller names another): the batch path of a corpus
+    encoded at several setups.
+
+    It keeps a :class:`BatchDecoder` per distinct (ident packet, setup
+    packet) pair, keyed by both as ``serve.StreamingScheduler`` keys its
+    groups (byte-identical setups under other ident headers must not share
+    a compiled geometry), made at the pair's first sight (the header parse
+    and ``compile_setup``) and kept across calls: a call with the setups
+    of an earlier one parses and compiles nothing. ``chunk`` and ``scan``
+    are each decoder's, as in ``BatchDecoder``; the decoders share one
+    compaction pool, and each keeps its own transfer slots, programs, carry
+    and outputs.
+
+    A decoder's programs, static inputs and frame blocks are sized by its
+    setup's stream count in a call, so shapes repeat, and nothing is
+    captured, only where each setup's count repeats from call to call. A
+    new count captures new programs beside the old, kept as long as the
+    decoder: batches whose per-setup counts vary grow the card's memory by
+    about as much as a decoder of that count holds, for each count met."""
+
+    def __init__(self, chunk: int = 64, scan: int = 1, device="cuda"):
+        self.chunk, self.scan = chunk, scan
+        self.device = torch.device(device)
+        #: (ident packet, setup packet) -> its decoder
+        self.decoders: dict[tuple[bytes, bytes], BatchDecoder] = {}
+        #: as BatchDecoder.stage_sync, over the whole call
+        self.stage_sync = False
+        #: accounting of the last call: the decoders' ``last_stats`` bytes
+        #: summed over its setups, the transport (a list in the setups'
+        #: order where they differ) and the host seconds per stage
+        self.last_stats = {"h2d_bytes": 0, "d2h_bytes": 0}
+        self._compact = _CompactPool()
+        #: decode_streams_i16 calls made (the ``batch.mixed`` span's rid)
+        self._calls = 0
+
+    def _decoder(self, ident_pck: bytes, setup_pck: bytes) -> BatchDecoder:
+        """The decoder of a header pair, made at the pair's first sight
+        (counted by ``batch.setup_compiles``); a pair that does not parse
+        raises ``BadHeader``."""
+        key = (bytes(ident_pck), bytes(setup_pck))
+        dec = self.decoders.get(key)
+        if dec is None:
+            try:
+                ident = read_header_ident(key[0])
+                setup = read_header_setup(key[1], ident)
+            except VorbisError as e:
+                raise BadHeader(f"a stream's headers do not parse: {e}") from e
+            dec = BatchDecoder(ident, setup, self.chunk, raw_headers=key,
+                               scan=self.scan, device=self.device)
+            dec._compact = self._compact
+            self.decoders[key] = dec
+            profiling.count("batch.setup_compiles", 1)
+        return dec
+
+    def decode_streams_i16(self, streams: list, headers: list,
+                           compact: str = "device",
+                           transport: str = "auto") -> list[np.ndarray]:
+        """Interleaved i16 PCM [total, C] of each stream (C its own), in
+        the caller's order. ``headers[i]`` is stream i's (ident packet,
+        setup packet); a stream, ``compact`` and ``transport`` are as in
+        ``BatchDecoder.decode_streams_i16`` ("auto" resolved per setup).
+
+        Every stream's decoder is found, or made, before anything decodes.
+        The setups run in the order of their first streams, each setup's
+        streams in the caller's order, so a batch of the same files in
+        another order repeats each setup's shapes. One pipeline runs across
+        the setups (:func:`_decode_groups`): a setup's first group is
+        entropy-decoded and dispatched before the previous setup's last
+        group is finished."""
+        if len(headers) != len(streams):
+            raise ValueError(f"{len(headers)} header pairs for "
+                             f"{len(streams)} streams")
+        self._calls += 1
+        with profiling.span("batch.mixed", self._calls):
+            order: dict[tuple[bytes, bytes], list[int]] = {}
+            for i, (ident_pck, setup_pck) in enumerate(headers):
+                order.setdefault((bytes(ident_pck), bytes(setup_pck)),
+                                 []).append(i)
+            profiling.count("batch.setups", len(order))
+            jobs = [(self._decoder(*key), [streams[i] for i in idx])
+                    for key, idx in order.items()]
+            st = _Stages(self.device, self.stage_sync)
+            parts = _decode_groups(jobs, compact, None, transport, st)
+            stats = [p.stats() for p in parts]
+            kinds = [s["transport"] for s in stats]
+            self.last_stats = {
+                "h2d_bytes": sum(s["h2d_bytes"] for s in stats),
+                "d2h_bytes": sum(s["d2h_bytes"] for s in stats),
+                "transport": kinds[0] if len(set(kinds)) == 1 else kinds,
+                "stages": st.result()}
+            out: list = [None] * len(streams)
+            for idx, part in zip(order.values(), parts):
+                for i, pcm in zip(idx, part.pcm()):
+                    out[i] = pcm
+            return out

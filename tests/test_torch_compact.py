@@ -140,7 +140,7 @@ def test_small_groups_make_no_pool(stream):
     thread: no pool is made."""
     dec = _decoder(stream, 1)
     outs = dec.decode_streams_i16([stream[2][:n] for n in LENGTHS])
-    assert len(outs) == len(LENGTHS) and dec._compact_pool is None
+    assert len(outs) == len(LENGTHS) and dec._compact.pool is None
 
 
 def test_a_part_error_reaches_the_caller(monkeypatch, stream):
