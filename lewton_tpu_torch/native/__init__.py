@@ -78,6 +78,8 @@ def _load():
     lib.lt_stream_mode_blockflag.argtypes = [C.c_void_p, C.c_int]
     lib.lt_decode_chunk.restype = C.c_int
     lib.lt_decode_chunk.argtypes = _CHUNK_ARGS
+    lib.lt_chunk_pool_stats.restype = None
+    lib.lt_chunk_pool_stats.argtypes = [_u64p, _u64p]
     lib.lt_ogg_new.restype = C.c_void_p
     lib.lt_ogg_new.argtypes = [_u8p, C.c_size_t]
     lib.lt_ogg_new_into.restype = C.c_void_p
@@ -382,7 +384,10 @@ def _run_batch(fn, args: tuple, threads: int) -> None:
     slots (a row a worker: ns clearing and deinterleaving the type-2
     residue scratch of submaps off the stereo direct write, ns in the
     per-channel residue) go to the counters ``frontend.busy_ns``,
-    ``frontend.wall_ns`` and :data:`_STAGE_COUNTERS`; else the entry gets
+    ``frontend.wall_ns`` and :data:`_STAGE_COUNTERS`, and the call's pool
+    counters (``lt_chunk_pool_stats``: threads started for it, ns from the
+    first worker finding no stream left to the last worker's end) to
+    ``frontend.spawned`` and ``frontend.tail_ns``; else the entry gets
     nulls and times nothing."""
     sp = profiling.begin("frontend.entropy")
     if sp is None:
@@ -394,10 +399,15 @@ def _run_batch(fn, args: tuple, threads: int) -> None:
         stages = np.zeros((len(busy), len(_STAGE_COUNTERS)), np.uint64)
         fn(*args, int(threads), _ptr(busy, C.c_uint64),
            _ptr(wall, C.c_uint64), _ptr(stages, C.c_uint64))
+        spawned, tail = np.zeros(1, np.uint64), np.zeros(1, np.uint64)
+        _load().lt_chunk_pool_stats(_ptr(spawned, C.c_uint64),
+                                    _ptr(tail, C.c_uint64))
         profiling.count("frontend.busy_ns", int(busy.sum()))
         profiling.count("frontend.wall_ns", int(wall[0]))
         for name, ns in zip(_STAGE_COUNTERS, stages.sum(0)):
             profiling.count(name, int(ns))
+        profiling.count("frontend.spawned", int(spawned[0]))
+        profiling.count("frontend.tail_ns", int(tail[0]))
     finally:
         profiling.end(sp)
 

@@ -4,10 +4,16 @@
 // (behavioral parity with lewton src/audio.rs:919-1005, independently
 // implemented from Vorbis I spec §4.3, §6, §7, §8.6). End-of-packet inside
 // floors/residues is data, not error.
+#include <unistd.h>
+
 #include <algorithm>
+#include <atomic>
 #include <chrono>
 #include <cmath>
+#include <condition_variable>
 #include <cstring>
+#include <mutex>
+#include <new>
 #include <thread>
 #include <vector>
 
@@ -617,7 +623,7 @@ static int decode_packet_head(Stream* st, const uint8_t* pck, size_t len,
   return LT_OK;
 }
 
-// The calling worker's row of stage slots (LT_NS_*): split_streams points
+// The calling worker's row of stage slots (LT_NS_*): for_streams points
 // it at the worker's row of the caller's block when one is given, else it
 // stays null and no clock is read.
 thread_local uint64_t* tl_stage_ns = nullptr;
@@ -1167,47 +1173,199 @@ void decode_stream(Stream* st, const uint8_t* buf, const uint64_t* offs,
   }
 }
 
-// Runs run(s) for s in [0, S): n_threads > 1 splits the streams into
-// contiguous blocks across std::thread workers (Stream is read-only during
-// decode); one worker runs inline on the calling thread.
+using Clock = std::chrono::steady_clock;
+
+uint64_t ns_of(Clock::duration d) {
+  return (uint64_t)std::chrono::duration_cast<std::chrono::nanoseconds>(d)
+      .count();
+}
+
+// One call's work for the pool: the streams to decode in claim order, a
+// shared index into it, and each worker's clocks.
+struct Job {
+  void (*run)(const void* ctx, int s);
+  const void* ctx;
+  const int* order;  // streams with packets, the most bytes first
+  int n;             // their count
+  int workers;       // the caller is worker 0
+  Clock::time_point t0;
+  uint64_t* busy_ns;   // [workers] or null
+  uint64_t* stage_ns;  // [workers][LT_NS_SLOTS] or null
+  std::vector<int64_t> end_ns;  // [workers]: from t0, -1 for a worker that
+                                // never joined
+  std::atomic<int> next{0};
+  int active = 0;  // pool threads inside the job (under Pool::mu_)
+};
+
+// Worker k's part of a job: claim the next stream of the order until it
+// runs out. A worker's end is the moment it finds the order exhausted.
+void work(Job& j, int k) {
+  const auto a = Clock::now();
+  lt::tl_stage_ns =
+      j.stage_ns ? j.stage_ns + (size_t)k * lt::LT_NS_SLOTS : nullptr;
+  for (int i; (i = j.next.fetch_add(1, std::memory_order_relaxed)) < j.n;)
+    j.run(j.ctx, j.order[i]);
+  lt::tl_stage_ns = nullptr;
+  const auto e = Clock::now();
+  if (j.busy_ns) j.busy_ns[k] = ns_of(e - a);
+  j.end_ns[k] = (int64_t)ns_of(e - j.t0);
+}
+
+// The chunk entry's workers, shared by every stream of the process: made
+// at the first call that asks for more than one, grown to the most a call
+// asks for (n_threads - 1: the caller is the other worker), never joined.
+// Between calls they sleep on a condition variable. One call at a time: a
+// second caller waits for the first.
+class Pool {
+ public:
+  explicit Pool(pid_t p) : pid(p) {}
+  const pid_t pid;  // a forked child makes its own pool
+
+  // Runs the job with j.workers workers, the caller as worker 0, once the
+  // pool holds `size` threads, and returns the threads started for it. A
+  // thread that cannot be started leaves its share to the others.
+  int run(Job& j, int size) {
+    std::lock_guard<std::mutex> one_call(call_mu_);
+    int spawned = 0;
+    {
+      std::lock_guard<std::mutex> lk(mu_);
+      while ((int)threads_.size() < size) {
+        try {
+          threads_.emplace_back(&Pool::loop, this,
+                                (int)threads_.size() + 1, gen_);
+        } catch (...) {
+          break;
+        }
+        ++spawned;
+      }
+      job_ = &j;
+      ++gen_;
+    }
+    wake_.notify_all();
+    work(j, 0);
+    std::unique_lock<std::mutex> lk(mu_);
+    job_ = nullptr;  // the order is exhausted: a late waker stays out
+    done_.wait(lk, [&] { return j.active == 0; });
+    return spawned;
+  }
+
+ private:
+  // Pool thread k (worker k of a job), first waiting for a job after
+  // generation `seen`.
+  void loop(int k, uint64_t seen) {
+    std::unique_lock<std::mutex> lk(mu_);
+    for (;;) {
+      wake_.wait(lk, [&] { return gen_ != seen; });
+      seen = gen_;
+      Job* j = job_;
+      if (!j || k >= j->workers) continue;
+      ++j->active;
+      lk.unlock();
+      work(*j, k);
+      lk.lock();
+      if (--j->active == 0) done_.notify_all();
+    }
+  }
+
+  std::mutex call_mu_;
+  std::mutex mu_;
+  std::condition_variable wake_, done_;
+  std::vector<std::thread> threads_;
+  Job* job_ = nullptr;
+  uint64_t gen_ = 0;
+};
+
+// This process's pool, or null when it cannot be made. A pool inherited
+// through fork() has no threads in the child: the child leaves it (and its
+// locks, whatever state they were copied in) alone and makes its own.
+Pool* process_pool() {
+  static std::atomic<Pool*> pool{nullptr};
+  const pid_t me = getpid();
+  for (;;) {
+    Pool* p = pool.load(std::memory_order_acquire);
+    if (p && p->pid == me) return p;
+    Pool* mine = new (std::nothrow) Pool(me);
+    if (!mine) return nullptr;
+    if (pool.compare_exchange_strong(p, mine)) return mine;
+    delete mine;  // another thread installed one first
+  }
+}
+
+// The last chunk call's pool counters, on the thread that made it.
+struct PoolStats {
+  uint64_t spawned = 0, tail_ns = 0;
+};
+thread_local PoolStats tl_pool_stats;
+
+// Runs run(s) for each stream s in [0, S) with packets (lens [S, T],
+// counts [S]). With n_threads > 1 and S > 1, min(n_threads, S) workers, the
+// caller and the pool's threads, take the streams one at a time from one
+// shared index, the most packet bytes first (a stable order: ties keep
+// index order); else the caller runs them all in index order. Every stream
+// writes only its own frames, so the output does not depend on the split.
 //
 // busy_ns, wall_ns and stage_ns may be null. When given, busy_ns[k]
-// receives worker k's time inside its block of streams, one slot per worker
-// (min(n_threads, S) workers, 1 when n_threads <= 1 or S <= 1), and
-// *wall_ns the call's wall time times its worker count, both from
-// steady_clock: their ratio is the workers' fill. stage_ns is a block of
-// [workers][LT_NS_SLOTS]: worker k adds to row k its time in each stage of
-// decode_packet_residues that an LT_NS_* constant names.
+// receives worker k's time from its start in the call to its last
+// stream's end, one slot per worker (0 for a worker that never joined),
+// and *wall_ns the call's wall time, from entry to the last worker's end,
+// times its worker count, both from steady_clock: their ratio is the
+// workers' fill. stage_ns is a block of [workers][LT_NS_SLOTS]: worker k
+// adds to row k its time in each stage of decode_packet_residues that an
+// LT_NS_* constant names. tl_pool_stats gets the threads started for the
+// call and its tail: from the first worker finding the order exhausted
+// to the last worker's end.
 template <typename Run>
-void split_streams(int S, int n_threads, uint64_t* busy_ns,
-                   uint64_t* wall_ns, uint64_t* stage_ns, const Run& run) {
-  using clk = std::chrono::steady_clock;
-  const auto ns = [](clk::duration d) {
-    return (uint64_t)std::chrono::duration_cast<std::chrono::nanoseconds>(d)
-        .count();
-  };
-  const auto t0 = clk::now();
+void for_streams(int S, int T, const uint64_t* lens, const int32_t* counts,
+                 int n_threads, uint64_t* busy_ns, uint64_t* wall_ns,
+                 uint64_t* stage_ns, const Run& run) {
+  const auto t0 = Clock::now();
+  tl_pool_stats = PoolStats{};
   const int nt =
       (n_threads <= 1 || S <= 1) ? 1 : (n_threads < S ? n_threads : S);
-  auto block = [&](int k) {
-    const int s0 = (int)((int64_t)S * k / nt);
-    const int s1 = (int)((int64_t)S * (k + 1) / nt);
-    const auto a = clk::now();
-    lt::tl_stage_ns =
-        stage_ns ? stage_ns + (size_t)k * lt::LT_NS_SLOTS : nullptr;
-    for (int s = s0; s < s1; ++s) run(s);
+  Pool* pool = nt > 1 ? process_pool() : nullptr;
+  if (!pool) {
+    lt::tl_stage_ns = stage_ns;
+    for (int s = 0; s < S; ++s) run(s);
     lt::tl_stage_ns = nullptr;
-    if (busy_ns) busy_ns[k] = ns(clk::now() - a);
-  };
-  if (nt == 1) {
-    block(0);
-  } else {
-    std::vector<std::thread> ts;
-    ts.reserve(nt);
-    for (int k = 0; k < nt; ++k) ts.emplace_back(block, k);
-    for (auto& t : ts) t.join();
+    const uint64_t wall = ns_of(Clock::now() - t0);
+    if (busy_ns) {
+      busy_ns[0] = wall;
+      for (int k = 1; k < nt; ++k) busy_ns[k] = 0;
+    }
+    if (wall_ns) *wall_ns = wall * (uint64_t)nt;
+    return;
   }
-  if (wall_ns) *wall_ns = ns(clk::now() - t0) * (uint64_t)nt;
+  std::vector<int> order;
+  std::vector<uint64_t> bytes(S, 0);
+  order.reserve(S);
+  for (int s = 0; s < S; ++s) {
+    if (counts[s] <= 0) continue;
+    const uint64_t* l = lens + (size_t)s * T;
+    for (int t = 0; t < counts[s]; ++t) bytes[s] += l[t];
+    order.push_back(s);
+  }
+  std::stable_sort(order.begin(), order.end(),
+                   [&](int a, int b) { return bytes[a] > bytes[b]; });
+  Job j;
+  j.run = [](const void* ctx, int s) { (*static_cast<const Run*>(ctx))(s); };
+  j.ctx = &run;
+  j.order = order.data();
+  j.n = (int)order.size();
+  j.workers = nt;
+  j.t0 = t0;
+  j.busy_ns = busy_ns;
+  j.stage_ns = stage_ns;
+  j.end_ns.assign(nt, -1);
+  if (busy_ns) std::fill(busy_ns, busy_ns + nt, 0);
+  tl_pool_stats.spawned = (uint64_t)pool->run(j, n_threads - 1);
+  int64_t first = j.end_ns[0], last = j.end_ns[0];
+  for (int64_t e : j.end_ns) {
+    if (e < 0) continue;
+    first = std::min(first, e);
+    last = std::max(last, e);
+  }
+  tl_pool_stats.tail_ns = (uint64_t)(last - first);
+  if (wall_ns) *wall_ns = (uint64_t)last * (uint64_t)nt;
 }
 
 }  // namespace
@@ -1222,7 +1380,7 @@ extern "C" {
 // counts[s] packets are decoded per stream, and slots past them are left
 // as they are. emit selects the residue frames' type (LT_EMIT_*): f32 and
 // i16 rows of C*rw elements, or p12 rows of 3*(C*rw)/8 u32 words (C*rw
-// divisible by 8). n_threads and the counters: split_streams. Returns S,
+// divisible by 8). n_threads and the counters: for_streams. Returns S,
 // or -1 (nothing decoded) on an emit it does not know or a p12 row width
 // not divisible by 8.
 int lt_decode_chunk(Stream* st, const uint8_t* const* bufs,
@@ -1238,7 +1396,8 @@ int lt_decode_chunk(Stream* st, const uint8_t* const* bufs,
   if (emit != lt::LT_EMIT_F32 && emit != lt::LT_EMIT_I16 &&
       !(emit == lt::LT_EMIT_P12 && n % 8 == 0))
     return -1;
-  split_streams(S, n_threads, busy_ns, wall_ns, stage_ns, [&](int s) {
+  for_streams(S, T, lens, counts, n_threads, busy_ns, wall_ns, stage_ns,
+              [&](int s) {
     const size_t b = (size_t)s * T;
     auto run = [&](auto&& rows) {
       decode_stream(st, bufs[s], offs + b, lens + b, counts[s], mode + b,
@@ -1254,6 +1413,15 @@ int lt_decode_chunk(Stream* st, const uint8_t* const* bufs,
       run(P12Rows((uint32_t*)residue + b * 3 * (n / 8), n));
   });
   return S;
+}
+
+// The pool counters of this thread's last lt_decode_chunk call: the
+// worker threads started for it (0 once the pool has grown to the call's
+// workers) and its tail, ns from the first worker finding no stream left
+// to claim to the last worker's end (0 for a call on the caller alone).
+void lt_chunk_pool_stats(uint64_t* spawned, uint64_t* tail_ns) {
+  *spawned = tl_pool_stats.spawned;
+  *tail_ns = tl_pool_stats.tail_ns;
 }
 
 // 12-bit residue transport pack (parallel/pack12.py documents the

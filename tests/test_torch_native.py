@@ -42,6 +42,11 @@ The comparisons:
   reference's native library, in f32, i16 and p12 emit, through the
   one-stream entry, the list-of-bytes batch entry on 1 thread and the
   ``PacketSpans`` batch entry on 4;
+- the chunk entry's worker pool: skewed batches (S of 0 to 257, empty
+  streams among full ones) on 2 to 16 workers against the calling thread
+  alone, bit for bit in every emit; its counters over two traced calls;
+  calls from two Python threads at once; a child forked from a process
+  whose pool is warm (each of these within ``POOL_TIMEOUT``);
 - the status codes and frames of truncated and bit-flipped packets;
 - ``native.pack12`` against ``pack12_np``'s numpy form;
 - ``BatchDecoder``'s reused (slot, N) buffers across calls of different S;
@@ -49,10 +54,14 @@ The comparisons:
   library cannot be built.
 """
 
+import ctypes as C
 import fcntl
+import multiprocessing
 import os
 import struct
 import subprocess
+import sys
+import threading
 
 import numpy as np
 import pytest
@@ -62,7 +71,7 @@ from hypothesis import strategies as st
 
 from lewton_tpu import native as jnative
 from lewton_tpu_torch import _build
-from lewton_tpu_torch import native
+from lewton_tpu_torch import native, profiling
 from lewton_tpu_torch.inside_ogg import read_headers
 from lewton_tpu_torch.models.decoder import StreamDecoder
 from lewton_tpu_torch.ogg import PacketReader, crc32_ogg
@@ -578,6 +587,167 @@ def test_frames_match_python_and_reference(name, emit, corpus_dir):
         for s, (fr, st1) in enumerate(mine):
             assert status[s].tobytes() == st1.tobytes()
             _equal({k: v[s] for k, v in out.items()}, fr)
+
+
+#: each pool test's time limit, seconds: a hang fails the test
+POOL_TIMEOUT = 120
+
+
+def _within(fn, *args, seconds: float = POOL_TIMEOUT):
+    """``fn(*args)`` on a daemon thread, its result or its error; fails
+    the test when it has not returned within ``seconds`` (a hung call is
+    left behind on the daemon thread)."""
+    got = {}
+
+    def run():
+        try:
+            got["value"] = fn(*args)
+        except BaseException as e:  # handed to the test's thread
+            got["error"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(seconds)
+    assert not t.is_alive(), f"{fn.__name__} still running after {seconds} s"
+    if "error" in got:
+        raise got["error"]
+    return got["value"]
+
+
+def _skewed(spans: "native.PacketSpans", S: int, seed: int) -> list:
+    """S windows of a stream's audio packets, as a batch's chunk sees
+    them: empty streams, a few packets and full chunks mixed, at seeded
+    offsets (so long and short blocks both)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(S):
+        n = int(rng.choice([0, int(rng.integers(1, 9)),
+                            int(rng.integers(9, CHUNK)), CHUNK]))
+        n = min(n, len(spans))
+        o = int(rng.integers(0, len(spans) - n + 1))
+        out.append(spans[o:o + n])
+    return out
+
+
+_pool_batches: dict = {}
+
+
+def _pool_batch(S: int, emit: str):
+    """(NativeStream, the skewed batch, its frames and status on the
+    calling thread alone) of stereo_44k_q3 at S streams, cached."""
+    if (S, emit) not in _pool_batches:
+        headers, audio = _first_link(stream_bytes("stereo_44k_q3"))
+        ns = native.NativeStream(headers.raw_ident, headers.raw_setup)
+        ns.residue_dtype = EMITS[emit]
+        batch = _skewed(native.PacketSpans.from_bytes(audio), S, seed=S)
+        _pool_batches[S, emit] = (ns, batch, _decode(ns, batch, 1))
+    return _pool_batches[S, emit]
+
+
+@pytest.mark.parametrize("threads", [1, 2, 3, 8, 16])
+@pytest.mark.parametrize("S", [0, 1, 3, 64, 257])
+@pytest.mark.parametrize("emit", EMITS)
+def test_pool_frames_match_one_thread(emit, S, threads):
+    """A skewed chunk (counts 0 to CHUNK mixed, empty streams, more
+    threads than streams) on ``threads`` workers claiming streams largest
+    first: frames and status bit for bit as on the calling thread alone,
+    in every emit (stereo_44k_q3 allows all three)."""
+    ns, batch, (want, want_status) = _pool_batch(S, emit)
+    if S >= 64:  # the skew the workers' claims have to even out
+        assert {0, CHUNK} <= {len(b) for b in batch}
+    out, status = _within(_decode, ns, batch, threads)
+    assert status.tobytes() == want_status.tobytes()
+    _equal(out, want)
+
+
+def _pool_counts(ns, batch, threads: int) -> dict:
+    """One traced call's counters (``_run_batch``'s)."""
+    profiling.reset()
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            _decode(ns, batch, threads)
+        return {r.name: r.n for r in profiling.records()
+                if isinstance(r, profiling.Count)}
+    finally:
+        profiling.reset()
+
+
+def test_pool_spawns_once_and_bounds_its_tail():
+    """Two successive traced calls: the second starts no thread (the pool
+    is warm), and each call's tail lies within its wall x workers."""
+    ns, batch, _ = _pool_batch(64, "i16")
+    first, second = (_within(_pool_counts, ns, batch, 8) for _ in range(2))
+    assert second["frontend.spawned"] == 0
+    for c in (first, second):
+        assert 0 <= c["frontend.tail_ns"] <= c["frontend.wall_ns"]
+        assert 0 < c["frontend.busy_ns"] <= c["frontend.wall_ns"]
+
+
+def test_pool_calls_from_two_threads():
+    """Two Python threads decoding at once on two NativeStreams of
+    different setups (stereo and 5.1), the interpreter switching threads
+    every microsecond: each call's frames and status as in serial calls."""
+    jobs = []
+    for name, S in (("stereo_44k_q3", 64), ("ch6_44k_q3", 48)):
+        headers, audio = _first_link(stream_bytes(name))
+        ns = native.NativeStream(headers.raw_ident, headers.raw_setup)
+        batch = _skewed(native.PacketSpans.from_bytes(audio), S, seed=7)
+        jobs.append((ns, batch, _decode(ns, batch, 1)))
+    bad = []
+
+    def hammer(ns, batch, want):
+        for _ in range(6):
+            out, status = _decode(ns, batch, 16)
+            try:
+                assert status.tobytes() == want[1].tobytes()
+                _equal(out, want[0])
+            except AssertionError as e:
+                bad.append(e)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        ts = [threading.Thread(target=hammer, args=job, daemon=True)
+              for job in jobs]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(POOL_TIMEOUT)
+        assert not any(t.is_alive() for t in ts), "a call hung"
+    finally:
+        sys.setswitchinterval(old)
+    assert not bad, bad[0]
+
+
+def _decode_in_child(ns, batch, want, status) -> None:
+    out, got = _decode(ns, batch, 4)
+    spawned, tail = np.zeros(1, np.uint64), np.zeros(1, np.uint64)
+    native._load().lt_chunk_pool_stats(native._ptr(spawned, C.c_uint64),
+                                       native._ptr(tail, C.c_uint64))
+    ok = got.tobytes() == status.tobytes() and all(
+        out[k].tobytes() == want[k].tobytes() for k in want)
+    # the child's first call on 4 workers started its own 3 threads
+    os._exit(0 if ok and spawned[0] == 3 else 3)
+
+
+@pytest.mark.filterwarnings("ignore:os.fork\\(\\) was called")
+@pytest.mark.filterwarnings("ignore:This process .* is multi-threaded")
+def test_pool_in_a_forked_child():
+    """A child forked once the parent's pool is warm starts its own pool
+    (its first call starts 3 threads): it decodes a batch on 4 threads as
+    the parent does and exits within the time limit."""
+    ns, batch, _ = _pool_batch(64, "f32")
+    want, status = _within(_decode, ns, batch, 4)  # the pool is warm
+    child = multiprocessing.get_context("fork").Process(
+        target=_decode_in_child, args=(ns, batch, want, status))
+    child.start()
+    child.join(POOL_TIMEOUT)
+    if child.is_alive():
+        child.kill()
+        child.join()
+        pytest.fail(f"the forked child hung past {POOL_TIMEOUT} s")
+    assert child.exitcode == 0
 
 
 @pytest.mark.parametrize("name,idx,kind,arg", MUTATIONS)

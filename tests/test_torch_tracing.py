@@ -454,6 +454,11 @@ def test_trace_writes_the_ranges_and_the_counters(tmp_path):
             "lt.native.demux"} <= names
     assert doc["lt_counts"]["transfer.slots"] == 3 * 2 * CHUNK
     assert doc["lt_counts"]["transfer.packets"] == 29
+    c = doc["lt_counts"]
+    # the front-end's pool: threads started, the calls' tails
+    assert c["frontend.spawned"] >= 0
+    assert 0 <= c["frontend.tail_ns"] <= c["frontend.wall_ns"]
+    assert 0 < c["frontend.busy_ns"] <= c["frontend.wall_ns"]
     got = profiling.idle_by_span(prof)
     assert got["busy_s"] == 0.0  # no card: every gap is idle
     assert got["by_span"]["batch.decode"] > 0
@@ -487,6 +492,12 @@ def test_native_busy_counters_only_when_asked(threads):
     assert (busy[workers:] == sentinel).all()
     assert (busy[:workers] != sentinel).all() and wall[0] != sentinel
     assert 0 < int(busy[:workers].sum()) <= int(wall[0])
+    # the pool's counters of this thread's last call
+    spawned, tail = np.zeros(1, np.uint64), np.zeros(1, np.uint64)
+    ns._lib.lt_chunk_pool_stats(native._ptr(spawned, C.c_uint64),
+                                native._ptr(tail, C.c_uint64))
+    assert spawned[0] <= max(threads - 1, 0)
+    assert int(tail[0]) <= int(wall[0]) // workers
     # the stage slots: a row a worker, added to, only when given
     stages = np.zeros((threads + 2, len(native._STAGE_COUNTERS)), np.uint64)
     stages[workers:] = sentinel
